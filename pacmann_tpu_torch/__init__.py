@@ -1,0 +1,17 @@
+"""pacmann_tpu_torch — the PyTorch + CUDA port of pacmann_tpu for NVIDIA
+Hopper (H100).
+
+The JAX package (pacmann_tpu) is the reference; this package imports torch
+and numpy, never jax. Same layer map as the reference:
+
+  ops/       PRF offset tables (kernel K1, csrc/aes_mmo.cu) and the
+             gather-XOR parity scan (kernel K2, csrc/xor_gather.cu), each
+             beside its plain torch version; the numpy AES oracle.
+  pir/       parameter derivation, DB layout, the device-resident batch
+             PIR engine, and state conversion from the JAX engine.
+  private/   fused private search: beam traversal + PIR per step.
+  utils/     u32-as-int32 helpers, stable top-k, the nvcc/ctypes loader.
+  csrc/      CUDA C++ sources for sm_90a, built on first use.
+"""
+
+__version__ = "0.1.0"

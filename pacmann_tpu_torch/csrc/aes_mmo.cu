@@ -1,0 +1,132 @@
+// K1: per-partition AES-128-MMO PRF offset tables, for sm_90a.
+//
+// Replaces the Pallas kernel `_aes_mmo_kernel` (pacmann_tpu/ops/aes_pallas.py,
+// reached through prf_tables_pallas): out[p, t, s] =
+// low32(AES-128-MMO_{key_p}(LE64((t << 35) + s) || 0^8)) & chunk_mask.
+// The PRF input block is the words (s, t << 3, 0, 0) (pianopir/util.go:157-165)
+// and MMO is E_k(m) ^ m, so the low word is the cipher's word 0 ^ s.
+//
+// The TPU kernel evaluates a bitsliced circuit because the TPU has no byte
+// lookups. Hopper does, so this is the plain T-table form: one thread per
+// (p, t, s) evaluation, grid-stride over the partition's T*S lattice, with
+// blockIdx.y selecting the partition.
+//
+// Bound on the H100: integer work and shared-memory lookups, about 150 per
+// evaluation (16 per round for rounds 1-9, 4 S-box reads for word 0 of the
+// last round; only the low output word is needed). The output is 4 bytes
+// per evaluation, so device memory is not the limit. Design: the four 1 KB
+// T-tables, the S-box and this partition's 44 round-key words sit in shared
+// memory, built once per block, so every lookup is an on-chip read. Random
+// lookups conflict on shared-memory banks; that is the first thing to look
+// at when making this faster.
+//
+// Words are little-endian: state byte j = row (j % 4) of column (j / 4) is
+// bits 8*(j%4) of word j/4, as the FIPS-197 byte order maps onto u32 loads.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+__constant__ uint8_t kSbox[256] = {
+    0x63, 0x7c, 0x77, 0x7b, 0xf2, 0x6b, 0x6f, 0xc5, 0x30, 0x01, 0x67, 0x2b, 0xfe, 0xd7, 0xab, 0x76,
+    0xca, 0x82, 0xc9, 0x7d, 0xfa, 0x59, 0x47, 0xf0, 0xad, 0xd4, 0xa2, 0xaf, 0x9c, 0xa4, 0x72, 0xc0,
+    0xb7, 0xfd, 0x93, 0x26, 0x36, 0x3f, 0xf7, 0xcc, 0x34, 0xa5, 0xe5, 0xf1, 0x71, 0xd8, 0x31, 0x15,
+    0x04, 0xc7, 0x23, 0xc3, 0x18, 0x96, 0x05, 0x9a, 0x07, 0x12, 0x80, 0xe2, 0xeb, 0x27, 0xb2, 0x75,
+    0x09, 0x83, 0x2c, 0x1a, 0x1b, 0x6e, 0x5a, 0xa0, 0x52, 0x3b, 0xd6, 0xb3, 0x29, 0xe3, 0x2f, 0x84,
+    0x53, 0xd1, 0x00, 0xed, 0x20, 0xfc, 0xb1, 0x5b, 0x6a, 0xcb, 0xbe, 0x39, 0x4a, 0x4c, 0x58, 0xcf,
+    0xd0, 0xef, 0xaa, 0xfb, 0x43, 0x4d, 0x33, 0x85, 0x45, 0xf9, 0x02, 0x7f, 0x50, 0x3c, 0x9f, 0xa8,
+    0x51, 0xa3, 0x40, 0x8f, 0x92, 0x9d, 0x38, 0xf5, 0xbc, 0xb6, 0xda, 0x21, 0x10, 0xff, 0xf3, 0xd2,
+    0xcd, 0x0c, 0x13, 0xec, 0x5f, 0x97, 0x44, 0x17, 0xc4, 0xa7, 0x7e, 0x3d, 0x64, 0x5d, 0x19, 0x73,
+    0x60, 0x81, 0x4f, 0xdc, 0x22, 0x2a, 0x90, 0x88, 0x46, 0xee, 0xb8, 0x14, 0xde, 0x5e, 0x0b, 0xdb,
+    0xe0, 0x32, 0x3a, 0x0a, 0x49, 0x06, 0x24, 0x5c, 0xc2, 0xd3, 0xac, 0x62, 0x91, 0x95, 0xe4, 0x79,
+    0xe7, 0xc8, 0x37, 0x6d, 0x8d, 0xd5, 0x4e, 0xa9, 0x6c, 0x56, 0xf4, 0xea, 0x65, 0x7a, 0xae, 0x08,
+    0xba, 0x78, 0x25, 0x2e, 0x1c, 0xa6, 0xb4, 0xc6, 0xe8, 0xdd, 0x74, 0x1f, 0x4b, 0xbd, 0x8b, 0x8a,
+    0x70, 0x3e, 0xb5, 0x66, 0x48, 0x03, 0xf6, 0x0e, 0x61, 0x35, 0x57, 0xb9, 0x86, 0xc1, 0x1d, 0x9e,
+    0xe1, 0xf8, 0x98, 0x11, 0x69, 0xd9, 0x8e, 0x94, 0x9b, 0x1e, 0x87, 0xe9, 0xce, 0x55, 0x28, 0xdf,
+    0x8c, 0xa1, 0x89, 0x0d, 0xbf, 0xe6, 0x42, 0x68, 0x41, 0x99, 0x2d, 0x0f, 0xb0, 0x54, 0xbb, 0x16,
+};
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocksPerPartition = 512;
+
+__device__ __forceinline__ uint32_t xtime(uint32_t b) {
+  return ((b << 1) ^ ((b & 0x80u) ? 0x1bu : 0u)) & 0xffu;
+}
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int n) {
+  return (x << n) | (x >> (32 - n));
+}
+
+__global__ void __launch_bounds__(kThreads) aes_mmo_tables_kernel(
+    const uint32_t* __restrict__ round_keys,  // (P, 44) little-endian words
+    int32_t* __restrict__ out,                // (P, T, S)
+    uint32_t n_evals,                         // T * S
+    uint32_t S, uint32_t chunk_mask) {
+  __shared__ uint32_t te[4][256];
+  __shared__ uint32_t sbox[256];
+  __shared__ uint32_t rk[44];
+  const uint32_t p = blockIdx.y;
+  for (uint32_t i = threadIdx.x; i < 256; i += blockDim.x) {
+    const uint32_t s = kSbox[i];
+    const uint32_t s2 = xtime(s);
+    // column contribution of a row-0 input byte: (2s, s, s, 3s)
+    const uint32_t w = s2 | (s << 8) | (s << 16) | ((s2 ^ s) << 24);
+    te[0][i] = w;
+    te[1][i] = rotl32(w, 8);
+    te[2][i] = rotl32(w, 16);
+    te[3][i] = rotl32(w, 24);
+    sbox[i] = s;
+  }
+  for (uint32_t i = threadIdx.x; i < 44; i += blockDim.x) {
+    rk[i] = round_keys[p * 44 + i];
+  }
+  __syncthreads();
+
+  int32_t* out_p = out + static_cast<size_t>(p) * n_evals;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n_evals;
+       i += stride) {
+    const uint32_t t = i / S;
+    const uint32_t s = i - t * S;
+    uint32_t w0 = s ^ rk[0];
+    uint32_t w1 = (t << 3) ^ rk[1];
+    uint32_t w2 = rk[2];
+    uint32_t w3 = rk[3];
+#pragma unroll
+    for (int r = 1; r < 10; ++r) {
+      // SubBytes + ShiftRows + MixColumns: output column c takes row j
+      // from input column (c + j) % 4
+      const uint32_t n0 = te[0][w0 & 0xff] ^ te[1][(w1 >> 8) & 0xff] ^
+                          te[2][(w2 >> 16) & 0xff] ^ te[3][w3 >> 24] ^ rk[4 * r];
+      const uint32_t n1 = te[0][w1 & 0xff] ^ te[1][(w2 >> 8) & 0xff] ^
+                          te[2][(w3 >> 16) & 0xff] ^ te[3][w0 >> 24] ^ rk[4 * r + 1];
+      const uint32_t n2 = te[0][w2 & 0xff] ^ te[1][(w3 >> 8) & 0xff] ^
+                          te[2][(w0 >> 16) & 0xff] ^ te[3][w1 >> 24] ^ rk[4 * r + 2];
+      const uint32_t n3 = te[0][w3 & 0xff] ^ te[1][(w0 >> 8) & 0xff] ^
+                          te[2][(w1 >> 16) & 0xff] ^ te[3][w2 >> 24] ^ rk[4 * r + 3];
+      w0 = n0;
+      w1 = n1;
+      w2 = n2;
+      w3 = n3;
+    }
+    // last round, column 0 only: SubBytes + ShiftRows + round key 10
+    const uint32_t c0 = (sbox[w0 & 0xff] | (sbox[(w1 >> 8) & 0xff] << 8) |
+                         (sbox[(w2 >> 16) & 0xff] << 16) |
+                         (sbox[w3 >> 24] << 24)) ^ rk[40];
+    out_p[i] = static_cast<int32_t>((c0 ^ s) & chunk_mask);  // MMO feed-forward
+  }
+}
+
+// round_keys: (P, 44) u32 device words; out: (P, T, S) int32 device buffer.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int aes_mmo_tables(const void* round_keys, void* out, int P, int T,
+                              int S, unsigned int chunk_mask, void* stream) {
+  if (P <= 0 || T <= 0 || S <= 0) return 0;
+  const uint32_t n_evals = static_cast<uint32_t>(T) * static_cast<uint32_t>(S);
+  uint32_t blocks = (n_evals + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocksPerPartition) blocks = kMaxBlocksPerPartition;
+  dim3 grid(blocks, static_cast<unsigned int>(P));
+  aes_mmo_tables_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(round_keys), static_cast<int32_t*>(out),
+      n_evals, static_cast<uint32_t>(S), chunk_mask);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,505 @@
+"""Device-resident batch-PIR engine in PyTorch: the port of the JAX
+package's pir/device_engine.py (DevicePianoEngine).
+
+The whole client+server state lives on one device:
+
+  offline (preprocessing):
+    1. per-partition PRF offset tables — kernel K1 (ops/aes.py);
+    2. one gather-XOR pass builds every primary+backup parity
+       (pir.go:303-352) — kernel K2 (ops/xor_scan.py);
+    3. replacement values gathered from the DB (pir.go:345-349) and the
+       slot-column cache (PRF column of every primary slot).
+
+  online (_pir_batch, one call per round of a batch):
+    A. slot selection: the hit scan (pir.go:404-419) with in-batch
+       reservations as an owner fixpoint, then budgets;
+    B. the query sets (the client->server message, pir.go:443-448), the
+       server's one gather-XOR (pir.go:65-88, kernel K2), the unmask;
+    C. the hint refresh (pir.go:460-468) as row scatters.
+
+Protocol semantics, tie orders and the numpy draw order are the JAX
+engine's, so the same seed gives the same state bit for bit (the tests
+hold the two engines against each other). Differences of form only:
+u32 arrays are int32 tensors with the same bits (utils/u32.py), offsets
+are stored as int32 (the JAX engine narrows them to u16), and the state is
+updated in place where JAX donated and rebuilt it.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from pacmann_tpu_torch.ops import aes, xor_scan
+from pacmann_tpu_torch.pir import layout
+from pacmann_tpu_torch.pir.params import (
+    DEFAULT_PROGRAM_POINT,
+    QUERY_PER_PARTITION,
+    derive_batch_params,
+    derive_piano_params,
+)
+from pacmann_tpu_torch.utils.u32 import first_true, from_u32
+
+# Phase-C refresh form: row scatters up to this many update rows per
+# round, the dense rewrite above it (the JAX engine's threshold; both
+# forms give identical state).
+_SCATTER_REFRESH_ROWS = 8192
+
+STATE_KEYS = ("table", "slot_col", "tag", "prog", "primary_parity",
+              "backup_parity", "hist", "finished", "repl_idx", "repl_val")
+
+
+def _gather_repl(db4, repl_off, k: int):
+    """Replacement values: db4 (S, P, C*k, 128), repl_off (P, S, R) local
+    in-chunk offsets -> (P, S, R, k*128)."""
+    S, P = db4.shape[:2]
+    R = repl_off.shape[2]
+    dev = db4.device
+    rows = (repl_off.permute(1, 0, 2).long()[..., None] * k
+            + torch.arange(k, device=dev)).reshape(S, P, R * k)
+    g = db4[torch.arange(S, device=dev)[:, None, None],
+            torch.arange(P, device=dev)[None, :, None], rows]
+    return g.reshape(S, P, R, k * 128).permute(1, 0, 2, 3).contiguous()
+
+
+def _build_skip(P: int, T: int, Hp: int, R: int, S: int, device):
+    """(P, T, S) bool: backup-hint group g skips chunk g (pir.go:330-339)."""
+    t = torch.arange(T, device=device)[:, None]
+    s = torch.arange(S, device=device)[None, :]
+    skip = (t >= Hp) & (s == torch.div(t - Hp, R, rounding_mode="floor"))
+    return skip[None].expand(P, T, S)
+
+
+def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
+                max_q, dpp):
+    """Client phases A + B-prep: slot selection and the query sets.
+
+    Returns (sel, qs), qs (Q, P, S) int32 being the per-round offset
+    vectors (the client->server message, pir.go:443-448); sel carries what
+    _pir_finish needs. The JAX engine's default "xla" route."""
+    tag, prog, ppar, slot_col, hist, finished = carry
+    Q, P = idx_q.shape
+    dev = idx_q.device
+
+    real_q = idx_q >= 0
+    idxu_q = torch.where(real_q, idx_q, 0)
+    chunk_q = torch.div(idxu_q, C, rounding_mode="floor")      # (Q, P)
+    off_q = idxu_q % C
+
+    # ---- Phase A: slot selection
+    p_ix2 = torch.arange(P, device=dev)[None, :].expand(Q, P)
+    prog_set = prog != dpp                                      # (P, Hp)
+    prog_chunk = torch.div(prog, C, rounding_mode="floor")
+    col_all = slot_col[p_ix2, chunk_q]                          # (Q, P, Hp)
+    elig = (col_all == off_q[..., None]) & (
+        ~prog_set[None] | (prog_chunk[None] != chunk_q[..., None]))
+    elig &= real_q[..., None]
+
+    # The sequential greedy claim as an owner fixpoint (see the JAX
+    # engine): round q's candidate is its first eligible slot not owned by
+    # an earlier round, owner[slot] the earliest round naming it; iterate
+    # until no owner changes (at most Q+1 passes, typically 2-3). The
+    # fixpoint is the reference's round-by-round outcome (pir.go:404-419).
+    q_iota = torch.arange(Q, device=dev)[:, None, None]
+    h_iota = torch.arange(Hp, device=dev)
+    owner = torch.full((P, Hp), Q, dtype=torch.int64, device=dev)
+    while True:
+        elig_eff = elig & (owner[None] >= q_iota)
+        cand = first_true(elig_eff, 2)                          # (Q, P)
+        found = elig_eff.any(dim=2)
+        match = found[:, :, None] & (cand[:, :, None] == h_iota)
+        new_owner = torch.where(match.any(dim=0), first_true(match, 0), Q)
+        changed = bool((new_owner != owner).any())
+        owner = new_owner
+        if not changed:
+            break
+    hit_q = torch.where(found, cand, 0)
+
+    # ---- budgets, assigned by round order
+    s_ar = torch.arange(S, device=dev)
+    chunk_oh = found[..., None] & (chunk_q[..., None] == s_ar)
+    rank_c = torch.cumsum(chunk_oh, dim=0) - 1                  # (Q, P, S)
+    rank_own = torch.gather(rank_c, 2, chunk_q.long()[..., None])[..., 0]
+    hist_own = hist[p_ix2, chunk_q]
+    ig_q = hist_own + rank_own
+    ok_r = found & (ig_q < R)
+    rank_p = torch.cumsum(ok_r, dim=0) - 1
+    ok_q = ok_r & (rank_p < (max_q - finished)[None, :])
+    ig_q = torch.clamp(ig_q, max=R - 1)
+
+    # ---- Phase B-prep: the query sets
+    p_ix = torch.arange(P, device=dev)[None, :]
+    hit_tag = tag[p_ix, hit_q]                                  # (Q, P)
+    qs = table[p_ix, hit_tag]                                   # (Q, P, S)
+    hp = prog[p_ix, hit_q]
+    hp_set = hp != dpp
+    s_iota = s_ar[None, None, :]
+    qs = torch.where(
+        (s_iota == torch.div(hp, C, rounding_mode="floor")[..., None])
+        & hp_set[..., None], (hp % C)[..., None], qs)
+    r_idx = repl_idx[p_ix, chunk_q, ig_q]                       # (Q, P)
+    qs = torch.where(s_iota == chunk_q[..., None], (r_idx % C)[..., None], qs)
+    # dummies keep the fixed access pattern (pir.go:363-371)
+    qs = torch.where(ok_q[..., None], qs, rnd_q)
+
+    sel = (hit_q, ok_q, ok_r, ig_q, chunk_q, idxu_q)
+    return sel, qs.to(torch.int32)
+
+
+def _pir_finish(repl_val, bpar, table, carry, sel, resp, *, C, R, Hp, S,
+                refresh=None):
+    """Client unmask + Phase-C refresh given the server response resp
+    (Q, P, k*128) int32 (pir.go:451-468). Writes the refreshed rows into
+    the carry's tensors in place. refresh: "scatter" or "dense"; None
+    picks scatter up to _SCATTER_REFRESH_ROWS update rows."""
+    tag, prog, ppar, slot_col, hist, finished = carry
+    hit_q, ok_q, ok_r, ig_q, chunk_q, idxu_q = sel
+    Q, P = hit_q.shape
+    dev = hit_q.device
+    p_ix = torch.arange(P, device=dev)[None, :]
+
+    r_val = repl_val[p_ix, chunk_q, ig_q]                       # (Q, P, Ep)
+    par = ppar[p_ix, hit_q]
+    entries = torch.where(ok_q[..., None], resp ^ r_val ^ par, 0)
+
+    # ---- Phase C: refresh writes (slots unique per partition)
+    btag = Hp + chunk_q * R + ig_q                              # (Q, P)
+    new_par = bpar[p_ix, btag - Hp] ^ entries
+    new_col = table[p_ix, btag]                                 # (Q, P, S)
+    if refresh is None:
+        refresh = "scatter" if Q * P <= _SCATTER_REFRESH_ROWS else "dense"
+    if refresh == "scatter":
+        # rows not served are left out (the JAX engine routes them to the
+        # out-of-bounds index Hp, which its scatter drops)
+        pg = p_ix.expand(Q, P)[ok_q]
+        h = hit_q[ok_q]
+        ppar[pg, h] = new_par[ok_q]
+        tag[pg, h] = btag[ok_q].to(tag.dtype)
+        prog[pg, h] = idxu_q[ok_q].to(prog.dtype)
+        slot_col[pg, :, h] = new_col[ok_q]
+    elif refresh == "dense":
+        # invert the mapping: for every primary slot (p, h), the round q
+        # that refreshed it (at most one), then masked selects
+        hit_v = torch.where(ok_q, hit_q, -1)
+        m3 = hit_v[:, :, None] == torch.arange(Hp, device=dev)  # (Q, P, Hp)
+        upd = m3.any(dim=0)                                     # (P, Hp)
+        src = first_true(m3, 0)                                 # (P, Hp)
+        p_grid = torch.arange(P, device=dev)[:, None].expand(P, Hp)
+        ppar.copy_(torch.where(upd[..., None], new_par[src, p_grid], ppar))
+        tag.copy_(torch.where(upd, btag[src, p_grid].to(tag.dtype), tag))
+        prog.copy_(torch.where(upd, idxu_q[src, p_grid].to(prog.dtype),
+                               prog))
+        sc_new = new_col[src, p_grid].transpose(1, 2)           # (P, S, Hp)
+        slot_col.copy_(torch.where(upd[:, None, :], sc_new, slot_col))
+    else:
+        raise ValueError(f"unknown refresh form {refresh!r}")
+    # burn the group index of every admitted candidate (ok_r), including
+    # rounds later denied by the global budget (spent-by-assignment)
+    s_ar = torch.arange(S, device=dev)
+    hist += (ok_r[..., None] & (chunk_q[..., None] == s_ar)).sum(
+        dim=0, dtype=hist.dtype)
+    finished += ok_q.sum(dim=0, dtype=finished.dtype)
+    return carry, entries, ok_q
+
+
+def _pir_batch(db, table, repl_idx, repl_val, bpar, carry, idx_q, rnd_q,
+               *, C, R, Hp, S, k, max_q, dpp, refresh=None):
+    """Serve Q sub-queries per partition: selection, the server scan
+    (kernel K2 on CUDA), unmask and refresh. carry = (tag, prog, ppar,
+    slot_col, hist, finished) is updated in place; idx_q (Q, P) int local
+    indices (-1 = dummy); rnd_q (Q, P, S) int32 dummy offsets.
+    Returns (carry, entries (Q, P, k*128) int32, ok (Q, P) bool)."""
+    Q, P = idx_q.shape
+    sel, qs = _pir_select(table, repl_idx, carry, idx_q, rnd_q, C=C, R=R,
+                          Hp=Hp, S=S, max_q=max_q, dpp=dpp)
+    resp = xor_scan.xor_server_scan(db, qs, k).reshape(Q, P, k * 128)
+    return _pir_finish(repl_val, bpar, table, carry, sel, resp, C=C, R=R,
+                       Hp=Hp, S=S, refresh=refresh)
+
+
+def pack_db(raw: torch.Tensor, *, S: int, P: int, C: int, k: int,
+            psize: int) -> torch.Tensor:
+    """(n, entry_u32) int32 -> (S, P, C*k, 128) int32 on raw's device: zero
+    pad rows to P*psize and columns to k*128, pad each partition to its
+    S*C-row slot, then partition-major -> set-major."""
+    n, entry_u32 = raw.shape
+    x = torch.zeros((P * S * C, k * 128), dtype=torch.int32,
+                    device=raw.device)
+    xv = x.view(P, S * C, k * 128)
+    for p in range(P):
+        lo, hi = p * psize, min((p + 1) * psize, n)
+        if hi > lo:
+            xv[p, : hi - lo, :entry_u32] = raw[lo:hi]
+    return xv.view(P, S, C * k, 128).transpose(0, 1).contiguous()
+
+
+class DevicePianoEngine:
+    """Batch PIR with device-resident hint state (the JAX engine's
+    query/preprocessing API). device: where the DB and state live; a CUDA
+    device runs kernels K1 and K2, the CPU their plain versions."""
+
+    def __init__(self, db_size: int, entry_bytes: int, batch_size: int,
+                 raw, failure_prob_log2: int, verbose: bool = False,
+                 device: torch.device | str | None = None, packed_db=None):
+        """raw: (db_size, entry_bytes/4) u32 numpy array or int32 tensor;
+        packed_db: an already packed (S, P, C*k, 128) int32 tensor (raw is
+        then ignored)."""
+        self.config = derive_batch_params(
+            db_size, entry_bytes, batch_size, failure_prob_log2)
+        c = self.config
+        self.verbose = verbose
+        P, psize = c.partition_num, c.partition_size
+        self.params = derive_piano_params(psize, entry_bytes, failure_prob_log2)
+        p = self.params
+        self.k = layout.entry_rows(entry_bytes // 4)
+        self.Ep = self.k * 128
+        if packed_db is not None:
+            want = (p.set_size, P, p.chunk_size * self.k, 128)
+            if tuple(packed_db.shape) != want:
+                raise ValueError(
+                    f"packed_db shape {tuple(packed_db.shape)} != {want}")
+            self.device = packed_db.device
+            self.db = packed_db
+        else:
+            if isinstance(raw, np.ndarray):
+                raw = from_u32(raw.reshape(db_size, entry_bytes // 4), device)
+            self.device = torch.device(device) if device is not None \
+                else raw.device
+            self.db = pack_db(raw.to(self.device), S=p.set_size, P=P,
+                              C=p.chunk_size, k=self.k, psize=psize)
+        self.state = None
+        self.cache: dict[int, np.ndarray] = {}
+        self._rng = np.random.default_rng()
+        # extra fixed-shape rounds per query() batch re-issuing unserved
+        # fetches (FCFS drops + hint misses); see query()
+        self.query_retries = 1
+
+        # stats (batch-pir.go:44-53)
+        self.finished_batch_num = 0
+        self.queries_made_in_partition = 0
+        self.support_batch_num = 0
+        self.preprocessing_time = 0.0
+        self.comm_cost_per_batch_offline = 0
+
+    # -- offline -------------------------------------------------------------
+
+    def _record_stats(self, prep_time: float):
+        self.preprocessing_time = prep_time
+        self.support_batch_num = self.params.max_query_num // QUERY_PER_PARTITION
+        db_bytes = float(self.config.db_size) * self.config.entry_bytes
+        self.comm_cost_per_batch_offline = int(db_bytes / self.support_batch_num)
+
+    def _prep_device(self, keys16: list[bytes], repl_off: np.ndarray):
+        """The offline pass on the engine's device: keys16 = one AES key
+        per partition, repl_off (P, S, R) u32. Returns (table, parities,
+        repl_val, slot_col)."""
+        p = self.params
+        P = self.config.partition_num
+        S, R, Hp = p.set_size, p.max_query_per_chunk, p.primary_hint_num
+        T = Hp + S * R
+        rk = aes.round_keys(keys16).to(self.device)
+        table = aes.prf_tables(rk, T, S, p.chunk_mask)          # (P, T, S)
+        skip = _build_skip(P, T, Hp, R, S, self.device)
+        parities = xor_scan.xor_hintgen(self.db, table, skip, self.k)
+        repl_val = _gather_repl(self.db, from_u32(repl_off, self.device),
+                                self.k)
+        slot_col = table[:, :Hp, :].transpose(1, 2).contiguous()
+        return table, parities, repl_val, slot_col
+
+    def _new_state(self, table, parities, repl_idx, repl_val, slot_col):
+        p = self.params
+        P, Hp = self.config.partition_num, p.primary_hint_num
+        dev = self.device
+        return dict(
+            table=table,
+            # cached PRF column per primary slot (initial tags are 0..Hp-1)
+            slot_col=slot_col,                                  # (P, S, Hp)
+            tag=torch.arange(Hp, dtype=torch.int32, device=dev)
+            .repeat(P, 1),
+            prog=torch.full((P, Hp), DEFAULT_PROGRAM_POINT,
+                            dtype=torch.int32, device=dev),
+            primary_parity=parities[:, :Hp, :],
+            backup_parity=parities[:, Hp:, :],
+            hist=torch.zeros((P, p.set_size), dtype=torch.int32, device=dev),
+            finished=torch.zeros((P,), dtype=torch.int32, device=dev),
+            repl_idx=repl_idx,
+            repl_val=repl_val,
+        )
+
+    def preprocessing(self, rng: np.random.Generator | None = None):
+        t0 = time.perf_counter()
+        self.finished_batch_num = 0
+        self.queries_made_in_partition = 0
+        self.cache = {}
+        # drop the spent window's buffers before building the new one
+        self.state = None
+        if rng is not None:
+            self._rng = rng
+        p = self.params
+        P = self.config.partition_num
+        S, R, C = p.set_size, p.max_query_per_chunk, p.chunk_size
+
+        # the JAX engine's draw order: replacement offsets, then one AES
+        # key per partition (pir.go:345-349)
+        repl_off = (self._rng.integers(
+            0, 2**32, size=(P, S, R), dtype=np.uint64)
+            & np.uint64(p.chunk_mask)).astype(np.uint32)
+        repl_idx = repl_off + (
+            np.arange(S, dtype=np.uint32) * C)[None, :, None]
+        keys16 = [self._rng.bytes(16) for _ in range(P)]
+
+        table, parities, repl_val, slot_col = self._prep_device(
+            keys16, repl_off)
+        self.state = self._new_state(table, parities,
+                                     from_u32(repl_idx, self.device),
+                                     repl_val, slot_col)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._record_stats(time.perf_counter() - t0)
+
+    def dummy_preprocessing(self, rng=None):
+        """Benchmark mode: zeroed hint state, fixed access pattern online."""
+        if rng is not None:
+            self._rng = rng
+        self.finished_batch_num = 0
+        self.queries_made_in_partition = 0
+        p = self.params
+        P = self.config.partition_num
+        S, R, Hp = p.set_size, p.max_query_per_chunk, p.primary_hint_num
+        T = Hp + S * R
+        dev = self.device
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        self.state = self._new_state(
+            zeros(P, T, S), zeros(P, T, self.Ep), zeros(P, S, R),
+            zeros(P, S, R, self.Ep), zeros(P, S, Hp))
+        self.cache = {}
+        self._record_stats(0.0)
+
+    # -- online --------------------------------------------------------------
+
+    def _online(self, idx_q: np.ndarray, rand_offs: np.ndarray,
+                refresh=None):
+        """One round: idx_q (Q, P) i32 local indices (-1 = dummy),
+        rand_offs (Q, P, S) u32 dummy offsets. Updates the state in place;
+        returns (entries (Q, P, k*128) int32, ok (Q, P) bool) tensors."""
+        p = self.params
+        st = self.state
+        carry = (st["tag"], st["prog"], st["primary_parity"],
+                 st["slot_col"], st["hist"], st["finished"])
+        _, entries, oks = _pir_batch(
+            self.db, st["table"], st["repl_idx"], st["repl_val"],
+            st["backup_parity"], carry,
+            torch.from_numpy(np.asarray(idx_q, np.int32)).to(self.device),
+            from_u32(rand_offs, self.device),
+            C=p.chunk_size, R=p.max_query_per_chunk, Hp=p.primary_hint_num,
+            S=p.set_size, k=self.k, max_q=p.max_query_num,
+            dpp=DEFAULT_PROGRAM_POINT, refresh=refresh)
+        return entries, oks
+
+    def query(self, ids, retries: int | None = None) -> np.ndarray:
+        """Reference batch contract (batch-pir.go:170-248): FCFS quota of
+        len(ids)/P per partition, dummy padding, overflow -> zeros; one
+        device round serves the whole batch, plus `retries` (default
+        self.query_retries = 1) fixed-shape rounds that re-issue what the
+        first could not serve (FCFS drops, hint misses). Retry rounds run
+        unconditionally (all-dummy when nothing is left), so the server
+        sees a fixed pattern; retries=0 is the strict single-round
+        contract. Budget use is read back from the device after the batch
+        (max of served count and backup-hint burn), as in the JAX engine."""
+        c = self.config
+        p = self.params
+        ids = [int(i) for i in ids]
+        P = c.partition_num
+        quota = len(ids) // P
+        if retries is None:
+            retries = self.query_retries
+
+        responses: dict[int, np.ndarray] = {}
+        E = c.entry_bytes // 4
+        rounds_run = 0
+        if quota > 0:
+            # distinct uncached ids in first-come order (an in-batch repeat
+            # hits the reference's response cache, pir.go:381-383)
+            want: list[int] = []
+            seen: set[int] = set()
+            for idx in ids:
+                if idx not in seen and idx not in self.cache:
+                    want.append(idx)
+                    seen.add(idx)
+            for rnd in range(1 + max(retries, 0)):
+                # public-state-only guard: skip a retry round only when
+                # even its worst-case consumption cannot fit the window
+                if rnd > 0 and (self.queries_made_in_partition
+                                + (rnd + 1) * quota >= p.max_query_num - 2):
+                    break
+                idx_q = np.full((quota, P), -1, np.int32)
+                gidx_q = np.full((quota, P), -1, np.int64)
+                filled = [0] * P
+                next_want: list[int] = []
+                for gidx in want:
+                    i = gidx // c.partition_size
+                    if filled[i] < quota:
+                        idx_q[filled[i], i] = gidx - i * c.partition_size
+                        gidx_q[filled[i], i] = gidx
+                        filled[i] += 1
+                    else:
+                        next_want.append(gidx)   # FCFS overflow -> retry
+                rand_offs = (self._rng.integers(
+                    0, 2**32, size=(quota, P, p.set_size), dtype=np.uint64)
+                    & np.uint64(p.chunk_mask)).astype(np.uint32)
+                entries, oks = self._online(idx_q, rand_offs)
+                entries = entries[:, :, :E].cpu().numpy().view(np.uint32)
+                oks = oks.cpu().numpy()
+                failed: list[int] = []
+                for j in range(quota):
+                    for i in range(P):
+                        g = gidx_q[j, i]
+                        if g < 0:
+                            continue
+                        if oks[j, i]:
+                            responses[int(g)] = entries[j, i]
+                            self.cache[int(g)] = entries[j, i]
+                        else:
+                            failed.append(int(g))  # hint miss / budget deny
+                rounds_run += 1
+                want = next_want + failed
+
+        out = np.zeros((len(ids), E), np.uint32)
+        for r, idx in enumerate(ids):
+            if idx in responses:
+                out[r] = responses[idx]
+            elif idx in self.cache:
+                out[r] = self.cache[idx]
+
+        # budget bookkeeping + auto re-prep (batch-pir.go:239-245), with
+        # the estimate corrected to the device-measured consumption
+        if rounds_run:
+            self.queries_made_in_partition = self.consumed()
+        if self.queries_made_in_partition >= p.max_query_num - 2:
+            if self.verbose:
+                print(f"Redo preprocessing after {self.finished_batch_num} batches")
+            self.preprocessing()
+        else:
+            self.finished_batch_num += len(ids) // c.batch_size
+        return out
+
+    def consumed(self) -> int:
+        """Device-measured budget use since prep: max over partitions of
+        the served count and of the backup-hint burn."""
+        fin = int(self.state["finished"].max())
+        burn = int(self.state["hist"].sum(dim=1).max())
+        return max(fin, burn)
+
+    # -- accounting (batch-pir.go:250-276) -----------------------------------
+
+    def local_storage_size(self) -> float:
+        return self.params.local_storage_bytes() * self.config.partition_num
+
+    def comm_cost_per_batch_online(self) -> int:
+        return int(self.params.comm_cost_per_query_bytes()
+                   * QUERY_PER_PARTITION * self.config.partition_num)

@@ -1,0 +1,94 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+Each kernel lives in csrc/<name>.cu behind a plain C entry point that takes
+device pointers, sizes and a cudaStream_t, launches, and returns
+cudaGetLastError(). It is compiled on first use for sm_90a into a shared
+library under pacmann_tpu_torch/build/ (git-ignored), named by a hash of
+its source so an edited kernel is rebuilt, and loaded once per process.
+Nothing here runs at import time: machines without nvcc import the
+package and use the plain torch versions on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+build_seconds: dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Compile csrc/<name>.cu if its build is missing, load it, cache it."""
+    if name in _LIBS:
+        return _LIBS[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    so = BUILD / f"lib{name}-{digest}.so"
+    if not so.exists():
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
+        os.replace(tmp, so)
+        build_seconds[name] = time.perf_counter() - t0
+        (BUILD / f"{name}.ptxas.txt").write_text(proc.stderr)
+    lib = ctypes.CDLL(str(so))
+    _LIBS[name] = lib
+    return lib
+
+
+def function(lib_name: str, fn_name: str, argtypes: list):
+    """A C entry point of csrc/<lib_name>.cu with its argument types set
+    (c_void_p for every pointer and the stream, so none is cut to 32 bits)
+    and an int (cudaError_t) result."""
+    fn = getattr(load(lib_name), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t from a launch entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

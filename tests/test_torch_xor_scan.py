@@ -1,0 +1,86 @@
+"""The port's gather-XOR (plain version of kernel K2) against the JAX
+package's three callers of that contract: xor_hintgen_mm (the Pallas
+kernel, interpreted on the CPU), xor_scan_parts and xor_gather_multi."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pacmann_tpu.ops.xor_scan import (
+    xor_gather_multi, xor_hintgen_mm, xor_scan_parts)
+from pacmann_tpu_torch.ops import xor_scan
+from pacmann_tpu_torch.utils.u32 import from_u32
+
+# Tests run in several worker processes at once; torch's default of one
+# intra-op thread per core oversubscribes the machine (measured about
+# 4x slower for this file set), and these tensors are small.
+torch.set_num_threads(1)
+
+
+def _db(rng, S, P, C, k):
+    return rng.integers(0, 2**32, size=(S, P, C * k, 128), dtype=np.uint32)
+
+
+@pytest.mark.parametrize("S,P,C,k,T", [(4, 2, 8, 2, 19), (8, 1, 16, 1, 260)])
+def test_hintgen_matches_mm_kernel_and_scan(S, P, C, k, T):
+    rng = np.random.default_rng(T)
+    db4 = _db(rng, S, P, C, k)
+    table = rng.integers(0, C, size=(P, T, S), dtype=np.uint32)
+    skip = rng.random((P, T, S)) < 0.25
+    got = xor_scan.xor_hintgen(from_u32(db4), from_u32(table),
+                               torch.from_numpy(skip), k)
+    got = got.numpy().view(np.uint32)
+    mm = np.asarray(xor_hintgen_mm(db4, table, skip, k, interpret=True))
+    parts = np.asarray(xor_scan_parts(db4, table, skip, k)).reshape(
+        P, T, k * 128)
+    assert np.array_equal(got, mm)
+    assert np.array_equal(got, parts)
+
+
+def test_server_scan_matches_gather_multi():
+    rng = np.random.default_rng(9)
+    S, P, C, k, Q = 4, 3, 8, 2, 5
+    db4 = _db(rng, S, P, C, k)
+    qs = rng.integers(0, C, size=(Q, P, S), dtype=np.uint32)
+    got = xor_scan.xor_server_scan(from_u32(db4), from_u32(qs), k)
+    want = np.asarray(xor_gather_multi(db4, qs, k))
+    assert got.shape == (Q, P, k, 128)
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_out_of_range_offsets_are_skips():
+    """Any offset outside [0, C) contributes zero, like a skip."""
+    rng = np.random.default_rng(3)
+    S, P, C, k, B = 3, 2, 4, 1, 6
+    db4 = from_u32(_db(rng, S, P, C, k))
+    off = torch.from_numpy(rng.integers(0, C, size=(P, B, S)).astype(np.int32))
+    skip = torch.zeros((P, B, S), dtype=torch.bool)
+    skip[:, :, 1] = True
+    want = xor_scan.xor_hintgen(db4, off, skip, k)
+    for bad in (-1, C, 1 << 30):
+        off2 = off.clone()
+        off2[:, :, 1] = bad
+        assert torch.equal(xor_scan.xor_gather(db4, off2, k), want), bad
+
+
+def test_xor_gather_routes_cpu_to_plain():
+    rng = np.random.default_rng(4)
+    db4 = from_u32(_db(rng, 2, 1, 4, 1))
+    off = torch.zeros((1, 2, 2), dtype=torch.int32)
+    launches = xor_scan.xor_gather_cuda.launches
+    xor_scan.xor_gather(db4, off, 1)
+    assert xor_scan.xor_gather_cuda.launches == launches
+    with pytest.raises(ValueError):
+        xor_scan.xor_gather_cuda(db4, off, 1)     # not a CUDA tensor
+
+
+def test_port_imports_no_jax():
+    """The port never loads jax: a fresh interpreter imports every module
+    of the package and finds no jax in sys.modules."""
+    code = ("import sys, pacmann_tpu_torch.private.fused_search, "
+            "pacmann_tpu_torch.pir.convert, pacmann_tpu_torch.ops.aes; "
+            "assert 'jax' not in sys.modules, 'jax imported'")
+    subprocess.run([sys.executable, "-c", code], check=True)
