@@ -7,18 +7,27 @@ n = 1,000,000 entries of 640 B (128 f32 || 32 u32), batch 32 (16
 partitions), FailureProbLog2 = 8. Phases, in order:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build kernels K1 (csrc/aes_mmo.cu) and K2 (csrc/xor_gather.cu);
+  2. build kernels K1 (csrc/aes_mmo.cu), K2 (csrc/xor_gather.cu) and
+     K3/K4 (csrc/protocol.cu), one nvcc each, all started together;
   3. each kernel against its plain torch version on the card at the main
-     path's shapes (bit-equal; both times), K1 spot-checked against the
-     numpy AES oracle, and the CUDA engine + fused search against the same
-     code on the CPU (plain versions) at a small size, bit-equal;
-  4. the engine: one warm and three timed preprocessing runs, then ten
-     query batches of 96 ids — every answered row equals its raw row and
-     the success rate is at least 0.98;
-  5. fused private search, groups 1 and 16 (max_step 20, parallel 3,
-     k 10): ms per query, and the measured fetch success within 0.03 of
-     the analytic bound (params.expected_success_rate);
-  6. the launch counters of K1 and K2 over phases 4-5 are nonzero.
+     path's shapes, bit-equal, both timed with CUDA events: K1 also
+     spot-checked against the numpy AES oracle; K3 (select_full) and K4
+     (claim_select) at Q = 6 and 96 on uniform, contended and budget-edge
+     rounds. Then, per protocol route ("xla", "pallas", "fused"), the CUDA
+     engine + fused search against the same code on the CPU (plain
+     versions) at a small size, bit-equal; and the three routes against
+     each other at full size: the same answers and state over ten
+     batch-96 batches;
+  4. the main path, once per route, each with the launch counters set to
+     0 just before it and read just after: the engine (one warm and three
+     timed preprocessing runs, then ten query batches of 96 ids; every
+     answered row equals its raw row, success at least 0.98), and on
+     routes "xla" and "fused" fused private search, groups 1 and 16
+     (max_step 20, parallel 3, k 10; fetch success within 0.03 of the
+     analytic bound, params.expected_success_rate);
+  5. every path launched K1 and K2, route "pallas" K4 and route "fused"
+     K3, and no path the other route's kernel; then _pir_select's time
+     per call on each route.
 
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Any failed phase raises (non-zero exit,
@@ -37,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +54,8 @@ import numpy as np
 DIM, M = 128, 32                      # 128 f32 || 32 u32 neighbor ids
 ENTRY_BYTES = 4 * (DIM + M)
 N, BATCH, FAIL = 1_000_000, 32, 8
+ROUTES = ("xla", "pallas", "fused")
+KERNELS = ("aes_mmo_tables", "xor_gather", "claim_select", "select_full")
 
 
 class SmokeFailure(RuntimeError):
@@ -164,10 +176,108 @@ def compare_k2(db, table, skip, quotas, seed: int) -> dict:
     return res
 
 
-def small_parity(seed: int):
+def protocol_inputs(gen, kind: str, Q: int, table, p, P: int,
+                    psize: int) -> list:
+    """Full-width K3 inputs on the card: the prep's slot columns and
+    offset table, random program points (half unset), tags, replacement
+    indices, budgets and dummy rows; idx_q (Q, P) local ids with 10 %
+    dummy rounds. kind "contended": every round of a partition asks one
+    id; "budget": one replacement left in every chunk (hist = R - 1), two
+    admissions left (finished = max_q - 2) and rounds repeating chunks."""
+    import torch
+
+    from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT as DPP
+
+    S, Hp, C, R = (p.set_size, p.primary_hint_num, p.chunk_size,
+                   p.max_query_per_chunk)
+    T = table.shape[1]
+
+    def ri(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, dtype=torch.int32,
+                             device="cuda")
+
+    slot_col = table[:, :Hp, :].transpose(1, 2).contiguous()
+    prog = torch.where(torch.rand((P, Hp), generator=gen, device="cuda")
+                       < 0.5, DPP, ri(S * C, P, Hp))
+    repl_idx = ri(C, P, S, R) + C * torch.arange(
+        S, dtype=torch.int32, device="cuda")[None, :, None]
+    hist = ri(R, P, S)
+    finished = ri(p.max_query_num // 2, P)
+    idx_q = ri(psize, Q, P)
+    if kind == "contended":
+        idx_q[1:] = idx_q[0].clone()
+    elif kind == "budget":
+        hist.fill_(R - 1)
+        finished.fill_(p.max_query_num - 2)
+        idx_q[Q // 2:] = idx_q[0].clone()
+    idx_q[torch.rand((Q, P), generator=gen, device="cuda") < 0.1] = -1
+    return [slot_col, prog, ri(T, P, Hp), table, repl_idx, hist, finished,
+            idx_q, ri(C, Q, P, S)]
+
+
+def compare_protocol(table, p, P: int, psize: int, quotas,
+                     seed: int) -> dict:
+    """K3 and K4 against their plain versions at the main path's shapes,
+    every output bit-equal; times of the uniform case (CUDA events)."""
+    import torch
+
+    from pacmann_tpu_torch.ops import protocol_kernels as pk
+    from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT as DPP
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    kw = dict(C=p.chunk_size, R=p.max_query_per_chunk,
+              Hp=p.primary_hint_num, S=p.set_size, max_q=p.max_query_num,
+              dpp=DPP)
+    res = {}
+    for Q in quotas:
+        for kind in ("uniform", "contended", "budget"):
+            a = protocol_inputs(gen, kind, Q, table, p, P, psize)
+            sel, qs = pk.select_full_cuda(*a, **kw)
+            sel_p, qs_p = pk.select_full_plain(*a, **kw)
+            real = a[7] >= 0
+            claim_args = (a[0], a[1], sel_p[4], sel_p[5] % p.chunk_size, real)
+            hit, fnd = pk.claim_select_cuda(*claim_args, C=p.chunk_size,
+                                            dpp=DPP)
+            hit_p, fnd_p = pk.claim_select_plain(*claim_args,
+                                                 C=p.chunk_size, dpp=DPP)
+            torch.cuda.synchronize()
+            k3_err = max(max_abs_err(x, y) for x, y in
+                         zip((qs, *sel), (qs_p, *sel_p)))
+            k4_err = max(max_abs_err(hit, hit_p), max_abs_err(fnd, fnd_p))
+            check(k3_err == 0, f"K3 differs from its plain version at Q={Q} "
+                  f"{kind} (max err {k3_err})")
+            check(k4_err == 0, f"K4 differs from its plain version at Q={Q} "
+                  f"{kind} (max err {k4_err})")
+            served, found = int(sel_p[1].sum()), int(fnd_p.sum())
+            row = dict(k3_err=k3_err, k4_err=k4_err, served=served,
+                       found=found, real=int(real.sum()))
+            if kind == "uniform":
+                row.update(
+                    k3_ms=cuda_ms(lambda: pk.select_full_cuda(*a, **kw), 50),
+                    k3_plain_ms=cuda_ms(
+                        lambda: pk.select_full_plain(*a, **kw), 3),
+                    k4_ms=cuda_ms(lambda: pk.claim_select_cuda(
+                        *claim_args, C=p.chunk_size, dpp=DPP), 50),
+                    k4_plain_ms=cuda_ms(lambda: pk.claim_select_plain(
+                        *claim_args, C=p.chunk_size, dpp=DPP), 3))
+                times = (f"; K3 kernel {row['k3_ms']:.4f} ms, plain "
+                         f"{row['k3_plain_ms']:.3f} ms; K4 kernel "
+                         f"{row['k4_ms']:.4f} ms, plain "
+                         f"{row['k4_plain_ms']:.3f} ms")
+            else:
+                times = ""
+            print(f"K3 select_full + K4 claim_select Q={Q} {kind}: bit-equal "
+                  f"to plain ({row['real']} real rounds, {found} found, "
+                  f"{served} served){times}")
+            res[f"Q={Q} {kind}"] = row
+    return res
+
+
+def small_parity(seed: int, route: str):
     """The CUDA path (kernels) and the CPU path (plain versions) of the
-    engine and the fused search, same seeds, small size: identical state,
-    answers and counters."""
+    engine and the fused search on one protocol route, same seeds, small
+    size: identical state, answers and counters."""
     import torch
 
     from pacmann_tpu_torch.pir.convert import state_to_numpy
@@ -184,7 +294,8 @@ def small_parity(seed: int):
     queries = rng.integers(0, 8, size=(2, d)).astype(np.float32)
     runs = {}
     for dev in ("cuda", "cpu"):
-        e = DevicePianoEngine(n, 4 * (d + m), m, raw, 8, device=dev)
+        e = DevicePianoEngine(n, 4 * (d + m), m, raw, 8, device=dev,
+                              kernel_route=route)
         e.preprocessing(rng=np.random.default_rng(seed + 1))
         prep_state = state_to_numpy(e.state)
         outs = [e.query([int(i) for i in np.random.default_rng(s).integers(
@@ -213,8 +324,84 @@ def small_parity(seed: int):
     for key in a[5]:
         check(np.array_equal(a[5][key], b[5][key]),
               f"small parity: state {key} differs after search")
-    print("small-input parity: CUDA path == CPU plain path (prep state, 3 "
-          "query batches, fused search ids/steps/stats, final state)")
+    print(f"small-input parity, route {route}: CUDA path == CPU plain path "
+          "(prep state, 3 query batches, fused search ids/steps/stats, "
+          "final state)")
+
+
+def route_identity(db, raw: np.ndarray, seed: int, batches: int = 10):
+    """One engine per protocol route on the same DB and seeds: identical
+    answers, and identical state after every batch of 96 ids."""
+    import torch
+
+    from pacmann_tpu_torch.pir.device_engine import DevicePianoEngine
+
+    engines = {}
+    for route in ROUTES:
+        e = DevicePianoEngine(N, ENTRY_BYTES, BATCH, None, FAIL,
+                              packed_db=db, kernel_route=route)
+        e.preprocessing(rng=np.random.default_rng(seed))
+        engines[route] = e
+    rng = np.random.default_rng(seed + 1)
+    keys = ("tag", "prog", "primary_parity", "slot_col", "hist", "finished")
+    for b in range(batches):
+        ids = [int(i) for i in rng.integers(0, N, 96)]
+        outs = {r: e.query(ids) for r, e in engines.items()}
+        ref = engines["xla"].state
+        for r in ROUTES[1:]:
+            check(np.array_equal(outs[r], outs["xla"]),
+                  f"route {r}: answers differ from route xla, batch {b}")
+            for key in keys:
+                check(torch.equal(engines[r].state[key], ref[key]),
+                      f"route {r}: state {key} differs from xla, batch {b}")
+    print(f"route identity at full size: {', '.join(ROUTES)} give the same "
+          f"answers and state ({', '.join(keys)}) after each of {batches} "
+          "batches of 96 ids")
+
+
+def pir_select_times(engine, quotas, seed: int, reps: int = 20) -> dict:
+    """_pir_select per call on each route at the main path's quotas, on
+    the engine's state: host clock over `reps` calls ending in a sync
+    (the "xla" route syncs the host once per fixpoint pass). Routes are
+    timed in turns, xla pallas fused fused pallas xla."""
+    import torch
+
+    from pacmann_tpu_torch.pir.device_engine import _pir_select
+    from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT as DPP
+
+    p = engine.params
+    P = engine.config.partition_num
+    st = engine.state
+    carry = (st["tag"], st["prog"], st["primary_parity"], st["slot_col"],
+             st["hist"], st["finished"])
+    kw = dict(C=p.chunk_size, R=p.max_query_per_chunk,
+              Hp=p.primary_hint_num, S=p.set_size, max_q=p.max_query_num,
+              dpp=DPP)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out = {}
+    for Q in quotas:
+        idx_q = torch.randint(0, engine.config.partition_size, (Q, P),
+                              generator=gen, dtype=torch.int32, device="cuda")
+        rnd = torch.randint(0, p.chunk_size, (Q, P, p.set_size),
+                            generator=gen, dtype=torch.int32, device="cuda")
+        times = {r: [] for r in ROUTES}
+        for route in ROUTES + ROUTES[::-1]:
+            def call():
+                return _pir_select(st["table"], st["repl_idx"], carry,
+                                   idx_q, rnd, route=route, **kw)
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+            times[route].append((time.perf_counter() - t0) * 1e3 / reps)
+        out[f"Q={Q}"] = times
+        print(f"_pir_select ms per call at Q={Q} (host clock, {reps} calls, "
+              "two turns): " + ", ".join(
+                  f"{r} {t[0]:.3f}/{t[1]:.3f}" for r, t in times.items()))
+    return out
 
 
 def engine_phase(engine, raw: np.ndarray, seed: int) -> dict:
@@ -312,6 +499,7 @@ def main() -> int:
         return 1
     try:
         from pacmann_tpu_torch.ops import aes, xor_scan
+        from pacmann_tpu_torch.ops import protocol_kernels as pk
         from pacmann_tpu_torch.pir.device_engine import (
             DevicePianoEngine, _build_skip)
         from pacmann_tpu_torch.private.fused_search import FusedPrivateSearch
@@ -328,15 +516,19 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # 2. build
-    for name in ("aes_mmo", "xor_gather"):
-        t0 = time.perf_counter()
-        cuda_lib.load(name)
+    # 2. build, one nvcc per source, all started together
+    names = ("aes_mmo", "xor_gather", "protocol")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(cuda_lib.load, names))
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(names)} "
+          "sources in parallel")
+    for name in names:
         note = cuda_lib.BUILD / f"{name}.ptxas.txt"
         ptxas = [ln.strip() for ln in note.read_text().splitlines()
                  if "registers" in ln] if note.exists() else []
-        print(f"build {name}: {time.perf_counter() - t0:.2f} s "
-              f"(nvcc {cuda_lib.build_seconds.get(name, 0.0):.2f} s) "
+        print(f"build {name}: nvcc "
+              f"{cuda_lib.build_seconds.get(name, 0.0):.2f} s "
               + " | ".join(ptxas))
 
     # the engine's DB (packing runs no kernel)
@@ -354,56 +546,98 @@ def main() -> int:
           f"Hp={Hp}, R={R}, T={T}, k={engine.k}, max_q={p.max_query_num}, "
           f"db {engine.db.numel() * 4 / 1e9:.3f} GB")
 
-    # 3. kernels against their plain versions at the main path's shapes
+    # 3. kernels against their plain versions at the main path's shapes,
+    # then the routes against the CPU and against each other
     k1 = compare_k1(args.seed + 10, T, S, p.chunk_mask)
+    table = k1.pop("table")
     skip = _build_skip(P, T, Hp, R, S, engine.device)
-    k2 = compare_k2(engine.db, k1.pop("table"), skip, (6, 96),
-                    args.seed + 11)
+    k2 = compare_k2(engine.db, table, skip, (6, 96), args.seed + 11)
+    k34 = compare_protocol(table, p, P, c.partition_size, (6, 96),
+                           args.seed + 13)
+    del table, skip
     torch.cuda.empty_cache()
-    small_parity(args.seed + 12)
+    for route in ROUTES:
+        small_parity(args.seed + 12, route)
+    route_identity(engine.db, raw, args.seed + 14)
+    torch.cuda.empty_cache()
 
-    # 4-5. the main path, with launch counters from zero
-    aes.aes_mmo_cuda.launches = 0
-    xor_scan.xor_gather_cuda.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    eng = engine_phase(engine, raw, args.seed + 20)
+    # 4. the main path once per route, launch counters from zero for each
+    counters = {"aes_mmo_tables": aes.aes_mmo_cuda,
+                "xor_gather": xor_scan.xor_gather_cuda,
+                "claim_select": pk.claim_select_cuda,
+                "select_full": pk.select_full_cuda}
+    own = {"xla": (), "pallas": ("claim_select",), "fused": ("select_full",)}
     sids = np.random.default_rng(args.seed + 30).choice(N, 1000,
                                                         replace=False)
     srows = raw[sids]
-    fs = FusedPrivateSearch(
-        engine, sids, np.ascontiguousarray(srows[:, :DIM]).view("<f4"),
-        srows[:, DIM:DIM + M].astype(np.int64) % N, dim=DIM, m=M, n=N)
-    fs.generator.manual_seed(args.seed + 31)
-    fused = {G: fused_phase(fs, G, 3, args.seed + 40 + G) for G in (1, 16)}
-    torch.cuda.synchronize()
-    launches = {"aes_mmo_tables": aes.aes_mmo_cuda.launches,
-                "xor_gather": xor_scan.xor_gather_cuda.launches}
+    paths, launches = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for route in ROUTES:
+        print(f"-- path {route}")
+        e = DevicePianoEngine(N, ENTRY_BYTES, BATCH, None, FAIL,
+                              packed_db=engine.db, kernel_route=route)
+        for fn in counters.values():
+            fn.launches = 0
+        res = dict(engine=engine_phase(e, raw, args.seed + 20))
+        if route != "pallas":
+            fs = FusedPrivateSearch(
+                e, sids, np.ascontiguousarray(srows[:, :DIM]).view("<f4"),
+                srows[:, DIM:DIM + M].astype(np.int64) % N, dim=DIM, m=M,
+                n=N)
+            fs.generator.manual_seed(args.seed + 31)
+            res["fused"] = {str(G): fused_phase(fs, G, 3,
+                                                args.seed + 40 + G)
+                            for G in (1, 16)}
+        torch.cuda.synchronize()
+        launches[route] = {k: fn.launches for k, fn in counters.items()}
+        print(f"path {route} launches: {launches[route]}")
+        for name, count in launches[route].items():
+            if name in ("aes_mmo_tables", "xor_gather") or name in own[route]:
+                check(count > 0, f"kernel {name} was not launched on path "
+                      f"{route}")
+            else:
+                check(count == 0, f"path {route} launched {name}")
+        paths[route] = res
+        if route == "fused":
+            select_ms = pir_select_times(e, (6, 96), args.seed + 50)
+        del e
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"main-path launches: {launches}; peak device memory "
-          f"{peak_gb:.3f} GB")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    print(f"peak device memory over the paths {peak_gb:.3f} GB")
 
-    details = dict(card=card, k1=k1, k2=k2, engine=eng,
-                   fused={str(g): v for g, v in fused.items()},
-                   launches=launches, peak_device_gb=peak_gb,
+    details = dict(card=card, k1=k1, k2=k2, k3_k4=k34, paths=paths,
+                   launches=launches, pir_select_ms=select_ms,
+                   peak_device_gb=peak_gb,
                    seconds=time.perf_counter() - t_start)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
+    total = {k: sum(launches[r][k] for r in ROUTES) for k in KERNELS}
     k2_err = max(v["max_abs_err"] for v in k2.values())
+    k34_q96 = k34["Q=96 uniform"]
     print(json.dumps({"kernels": [
         {"name": "aes_mmo_tables", "route": "cuda",
          "source": "pacmann_tpu_torch/csrc/aes_mmo.cu",
          "replaces": "pacmann_tpu/ops/aes_pallas.py:129",
-         "launches": launches["aes_mmo_tables"],
+         "launches": total["aes_mmo_tables"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"]},
         {"name": "xor_gather", "route": "cuda",
          "source": "pacmann_tpu_torch/csrc/xor_gather.cu",
          "replaces": "pacmann_tpu/ops/xor_scan.py:346",
-         "launches": launches["xor_gather"], "max_abs_err": k2_err,
+         "launches": total["xor_gather"], "max_abs_err": k2_err,
          "ms": k2["prep"]["ms"], "plain_ms": k2["prep"]["plain_ms"]},
+        {"name": "claim_select", "route": "cuda",
+         "source": "pacmann_tpu_torch/csrc/protocol.cu",
+         "replaces": "pacmann_tpu/ops/protocol_kernels.py:119",
+         "launches": total["claim_select"],
+         "max_abs_err": max(v["k4_err"] for v in k34.values()),
+         "ms": k34_q96["k4_ms"], "plain_ms": k34_q96["k4_plain_ms"]},
+        {"name": "select_full", "route": "cuda",
+         "source": "pacmann_tpu_torch/csrc/protocol.cu",
+         "replaces": "pacmann_tpu/ops/protocol_kernels.py:287",
+         "launches": total["select_full"],
+         "max_abs_err": max(v["k3_err"] for v in k34.values()),
+         "ms": k34_q96["k3_ms"], "plain_ms": k34_q96["k3_plain_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

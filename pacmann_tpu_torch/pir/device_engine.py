@@ -12,7 +12,10 @@ The whole client+server state lives on one device:
 
   online (_pir_batch, one call per round of a batch):
     A. slot selection: the hit scan (pir.go:404-419) with in-batch
-       reservations as an owner fixpoint, then budgets;
+       reservations, then budgets. The client-protocol route picks the
+       form: "xla" an owner fixpoint of torch ops, "pallas" kernel K4 for
+       the claim, "fused" kernel K3 for the whole selection
+       (ops/protocol_kernels.py); all three give the same outcome;
     B. the query sets (the client->server message, pir.go:443-448), the
        server's one gather-XOR (pir.go:65-88, kernel K2), the unmask;
     C. the hint refresh (pir.go:460-468) as row scatters.
@@ -27,12 +30,13 @@ updated in place where JAX donated and rebuilt it.
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
 import torch
 
-from pacmann_tpu_torch.ops import aes, xor_scan
+from pacmann_tpu_torch.ops import aes, protocol_kernels, xor_scan
 from pacmann_tpu_torch.pir import layout
 from pacmann_tpu_torch.pir.params import (
     DEFAULT_PROGRAM_POINT,
@@ -46,6 +50,14 @@ from pacmann_tpu_torch.utils.u32 import first_true, from_u32
 # round, the dense rewrite above it (the JAX engine's threshold; both
 # forms give identical state).
 _SCATTER_REFRESH_ROWS = 8192
+
+# Client-protocol routes, named as in the JAX engine: "xla" the owner
+# fixpoint of torch ops, "pallas" kernel K4 for the claim, "fused" kernel
+# K3 for the whole selection. "auto" is "pallas" on a CUDA device and "xla"
+# on the CPU, as the JAX engine's is the Pallas kernel on a TPU and XLA
+# elsewhere. None defers to $PACMANN_PROTOCOL_ROUTE, then _DEFAULT_ROUTE.
+ROUTES = ("xla", "pallas", "fused")
+_DEFAULT_ROUTE = "xla"
 
 STATE_KEYS = ("table", "slot_col", "tag", "prog", "primary_parity",
               "backup_parity", "hist", "finished", "repl_idx", "repl_val")
@@ -72,16 +84,34 @@ def _build_skip(P: int, T: int, Hp: int, R: int, S: int, device):
     return skip[None].expand(P, T, S)
 
 
+def resolve_route(route: str | None, device) -> str:
+    """The client-protocol route for a call on `device` (see ROUTES)."""
+    if route is None:
+        route = os.environ.get("PACMANN_PROTOCOL_ROUTE", _DEFAULT_ROUTE)
+    if route == "auto":
+        return "pallas" if torch.device(device).type == "cuda" else "xla"
+    if route not in ROUTES:
+        raise ValueError(f"unknown protocol route {route!r}; expected one "
+                         f"of {ROUTES} or 'auto'")
+    return route
+
+
 def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
-                max_q, dpp):
+                max_q, dpp, route=None):
     """Client phases A + B-prep: slot selection and the query sets.
 
     Returns (sel, qs), qs (Q, P, S) int32 being the per-round offset
     vectors (the client->server message, pir.go:443-448); sel carries what
-    _pir_finish needs. The JAX engine's default "xla" route."""
+    _pir_finish needs. route: see resolve_route; every route gives the
+    same hit, ok_q, ok_r, ig and qs."""
     tag, prog, ppar, slot_col, hist, finished = carry
     Q, P = idx_q.shape
     dev = idx_q.device
+    route = resolve_route(route, dev)
+    if route == "fused":
+        return protocol_kernels.select_full(
+            slot_col, prog, tag, table, repl_idx, hist, finished, idx_q,
+            rnd_q, C=C, R=R, Hp=Hp, S=S, max_q=max_q, dpp=dpp)
 
     real_q = idx_q >= 0
     idxu_q = torch.where(real_q, idx_q, 0)
@@ -90,32 +120,12 @@ def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
 
     # ---- Phase A: slot selection
     p_ix2 = torch.arange(P, device=dev)[None, :].expand(Q, P)
-    prog_set = prog != dpp                                      # (P, Hp)
-    prog_chunk = torch.div(prog, C, rounding_mode="floor")
-    col_all = slot_col[p_ix2, chunk_q]                          # (Q, P, Hp)
-    elig = (col_all == off_q[..., None]) & (
-        ~prog_set[None] | (prog_chunk[None] != chunk_q[..., None]))
-    elig &= real_q[..., None]
-
-    # The sequential greedy claim as an owner fixpoint (see the JAX
-    # engine): round q's candidate is its first eligible slot not owned by
-    # an earlier round, owner[slot] the earliest round naming it; iterate
-    # until no owner changes (at most Q+1 passes, typically 2-3). The
-    # fixpoint is the reference's round-by-round outcome (pir.go:404-419).
-    q_iota = torch.arange(Q, device=dev)[:, None, None]
-    h_iota = torch.arange(Hp, device=dev)
-    owner = torch.full((P, Hp), Q, dtype=torch.int64, device=dev)
-    while True:
-        elig_eff = elig & (owner[None] >= q_iota)
-        cand = first_true(elig_eff, 2)                          # (Q, P)
-        found = elig_eff.any(dim=2)
-        match = found[:, :, None] & (cand[:, :, None] == h_iota)
-        new_owner = torch.where(match.any(dim=0), first_true(match, 0), Q)
-        changed = bool((new_owner != owner).any())
-        owner = new_owner
-        if not changed:
-            break
-    hit_q = torch.where(found, cand, 0)
+    if route == "pallas":
+        hit_q, found = protocol_kernels.claim_select(
+            slot_col, prog, chunk_q, off_q, real_q, C=C, dpp=dpp)
+    else:
+        hit_q, found = _claim_fixpoint(slot_col, prog, chunk_q, off_q,
+                                       real_q, C=C, dpp=dpp)
 
     # ---- budgets, assigned by round order
     s_ar = torch.arange(S, device=dev)
@@ -146,6 +156,40 @@ def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
 
     sel = (hit_q, ok_q, ok_r, ig_q, chunk_q, idxu_q)
     return sel, qs.to(torch.int32)
+
+
+def _claim_fixpoint(slot_col, prog, chunk_q, off_q, real_q, *, C, dpp):
+    """Phase A of the "xla" route: the sequential greedy claim as an owner
+    fixpoint (see the JAX engine). Round q's candidate is its first
+    eligible slot not owned by an earlier round, owner[slot] the earliest
+    round naming it; iterate until no owner changes (at most Q+1 passes,
+    typically 2-3). The fixpoint is the reference's round-by-round outcome
+    (pir.go:404-419). Returns (hit (Q, P), found (Q, P))."""
+    Q, P = chunk_q.shape
+    Hp = prog.shape[1]
+    dev = chunk_q.device
+    p_ix2 = torch.arange(P, device=dev)[None, :].expand(Q, P)
+    prog_set = prog != dpp                                      # (P, Hp)
+    prog_chunk = torch.div(prog, C, rounding_mode="floor")
+    col_all = slot_col[p_ix2, chunk_q]                          # (Q, P, Hp)
+    elig = (col_all == off_q[..., None]) & (
+        ~prog_set[None] | (prog_chunk[None] != chunk_q[..., None]))
+    elig &= real_q[..., None]
+
+    q_iota = torch.arange(Q, device=dev)[:, None, None]
+    h_iota = torch.arange(Hp, device=dev)
+    owner = torch.full((P, Hp), Q, dtype=torch.int64, device=dev)
+    while True:
+        elig_eff = elig & (owner[None] >= q_iota)
+        cand = first_true(elig_eff, 2)                          # (Q, P)
+        found = elig_eff.any(dim=2)
+        match = found[:, :, None] & (cand[:, :, None] == h_iota)
+        new_owner = torch.where(match.any(dim=0), first_true(match, 0), Q)
+        changed = bool((new_owner != owner).any())
+        owner = new_owner
+        if not changed:
+            break
+    return torch.where(found, cand, 0), found
 
 
 def _pir_finish(repl_val, bpar, table, carry, sel, resp, *, C, R, Hp, S,
@@ -205,15 +249,16 @@ def _pir_finish(repl_val, bpar, table, carry, sel, resp, *, C, R, Hp, S,
 
 
 def _pir_batch(db, table, repl_idx, repl_val, bpar, carry, idx_q, rnd_q,
-               *, C, R, Hp, S, k, max_q, dpp, refresh=None):
-    """Serve Q sub-queries per partition: selection, the server scan
-    (kernel K2 on CUDA), unmask and refresh. carry = (tag, prog, ppar,
-    slot_col, hist, finished) is updated in place; idx_q (Q, P) int local
-    indices (-1 = dummy); rnd_q (Q, P, S) int32 dummy offsets.
+               *, C, R, Hp, S, k, max_q, dpp, refresh=None, route=None):
+    """Serve Q sub-queries per partition: selection (on the protocol
+    route `route`), the server scan (kernel K2 on CUDA), unmask and
+    refresh. carry = (tag, prog, ppar, slot_col, hist, finished) is
+    updated in place; idx_q (Q, P) int32 local indices (-1 = dummy); rnd_q
+    (Q, P, S) int32 dummy offsets.
     Returns (carry, entries (Q, P, k*128) int32, ok (Q, P) bool)."""
     Q, P = idx_q.shape
     sel, qs = _pir_select(table, repl_idx, carry, idx_q, rnd_q, C=C, R=R,
-                          Hp=Hp, S=S, max_q=max_q, dpp=dpp)
+                          Hp=Hp, S=S, max_q=max_q, dpp=dpp, route=route)
     resp = xor_scan.xor_server_scan(db, qs, k).reshape(Q, P, k * 128)
     return _pir_finish(repl_val, bpar, table, carry, sel, resp, C=C, R=R,
                        Hp=Hp, S=S, refresh=refresh)
@@ -238,14 +283,19 @@ def pack_db(raw: torch.Tensor, *, S: int, P: int, C: int, k: int,
 class DevicePianoEngine:
     """Batch PIR with device-resident hint state (the JAX engine's
     query/preprocessing API). device: where the DB and state live; a CUDA
-    device runs kernels K1 and K2, the CPU their plain versions."""
+    device runs the kernels, the CPU their plain versions."""
 
     def __init__(self, db_size: int, entry_bytes: int, batch_size: int,
                  raw, failure_prob_log2: int, verbose: bool = False,
-                 device: torch.device | str | None = None, packed_db=None):
+                 device: torch.device | str | None = None, packed_db=None,
+                 kernel_route: str | None = None):
         """raw: (db_size, entry_bytes/4) u32 numpy array or int32 tensor;
         packed_db: an already packed (S, P, C*k, 128) int32 tensor (raw is
-        then ignored)."""
+        then ignored); kernel_route: the client-protocol route of every
+        batch (ROUTES, "auto", or None for $PACMANN_PROTOCOL_ROUTE, then
+        "xla"), resolved at each batch as resolve_route says."""
+        if kernel_route is not None:
+            resolve_route(kernel_route, "cpu")    # an unknown name raises
         self.config = derive_batch_params(
             db_size, entry_bytes, batch_size, failure_prob_log2)
         c = self.config
@@ -270,6 +320,7 @@ class DevicePianoEngine:
             self.db = pack_db(raw.to(self.device), S=p.set_size, P=P,
                               C=p.chunk_size, k=self.k, psize=psize)
         self.state = None
+        self.kernel_route = kernel_route
         self.cache: dict[int, np.ndarray] = {}
         self._rng = np.random.default_rng()
         # extra fixed-shape rounds per query() batch re-issuing unserved
@@ -398,7 +449,8 @@ class DevicePianoEngine:
             from_u32(rand_offs, self.device),
             C=p.chunk_size, R=p.max_query_per_chunk, Hp=p.primary_hint_num,
             S=p.set_size, k=self.k, max_q=p.max_query_num,
-            dpp=DEFAULT_PROGRAM_POINT, refresh=refresh)
+            dpp=DEFAULT_PROGRAM_POINT, refresh=refresh,
+            route=self.kernel_route)
         return entries, oks
 
     def query(self, ids, retries: int | None = None) -> np.ndarray:

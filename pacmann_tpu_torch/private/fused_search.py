@@ -10,8 +10,9 @@ Each beam step, over a group of concurrent queries:
   3. FCFS routing: surviving ids are ranked within their batch-PIR
      partitions and the first `quota` per partition become sub-queries,
      the rest are dropped (batch-pir.go:194-216);
-  4. PIR: _pir_batch serves quota sub-queries per partition (kernel K2
-     answers them on CUDA);
+  4. PIR: _pir_batch serves quota sub-queries per partition on the
+     engine's protocol route (kernel K3 or K4 selects on CUDA when the
+     route says so; kernel K2 answers);
   5. decode (vector || neighbors) and update the visited table
      (search.go:187-207).
 
@@ -302,7 +303,8 @@ class FusedPrivateSearch:
 
         pir_kw = dict(C=p.chunk_size, R=p.max_query_per_chunk,
                       Hp=p.primary_hint_num, S=p.set_size, k=e.k,
-                      max_q=p.max_query_num, dpp=DEFAULT_PROGRAM_POINT)
+                      max_q=p.max_query_num, dpp=DEFAULT_PROGRAM_POINT,
+                      route=e.kernel_route)
         stats = torch.zeros(3, dtype=torch.int64, device=dev)
         self.last_maintenance_s = 0.0
         base = 0

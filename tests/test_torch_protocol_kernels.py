@@ -1,0 +1,315 @@
+"""The port's client-protocol routes against the JAX package, bit for bit.
+
+The plain versions of kernels K4 (claim_select) and K3 (select_full)
+against the JAX Pallas kernels (interpreted on the CPU), their numpy twin
+and the "xla" route's owner fixpoint; then the engine on every protocol
+route and the fused search on route "fused" against the JAX engine and
+search on the same route. Tolerance: none, every output is an integer."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pacmann_tpu.ops import protocol_kernels as jpk
+from pacmann_tpu.pir.device_engine import DevicePianoEngine as JaxEngine
+from pacmann_tpu.pir.device_engine import _pir_select as jax_pir_select
+from pacmann_tpu_torch.ops import protocol_kernels as tpk
+from pacmann_tpu_torch.pir import device_engine as tde
+from pacmann_tpu_torch.pir.convert import state_to_numpy
+from pacmann_tpu_torch.pir.device_engine import STATE_KEYS
+from pacmann_tpu_torch.pir.device_engine import DevicePianoEngine as TorchEngine
+from pacmann_tpu_torch.utils import cuda_lib
+
+# Tests run in several worker processes at once; torch's default of one
+# intra-op thread per core oversubscribes the machine, and these tensors
+# are small.
+torch.set_num_threads(1)
+
+DPP = 0x7FFFFFFF
+
+
+def _t(a):
+    """numpy (u16/u32/i32/bool) -> the port's tensor of the same values."""
+    a = np.asarray(a)
+    if a.dtype == bool:
+        return torch.from_numpy(a.copy())
+    return torch.from_numpy(a.astype(np.int64).astype(np.int32))
+
+
+def _claim_case(rng, Q, P, S, Hp, C, contended):
+    slot_col = rng.integers(0, C, size=(P, S, Hp)).astype(np.uint16)
+    prog = rng.integers(0, S * C, size=(P, Hp)).astype(np.uint32)
+    prog[rng.random((P, Hp)) < 0.5] = DPP
+    if contended:
+        # every round asks one (chunk, offset): all rounds contest one
+        # eligible set per partition
+        chunk_q = np.full((Q, P), rng.integers(0, S), np.int32)
+        off_q = np.full((Q, P), rng.integers(0, C), np.uint32)
+    else:
+        chunk_q = rng.integers(0, S, size=(Q, P)).astype(np.int32)
+        off_q = rng.integers(0, C, size=(Q, P)).astype(np.uint32)
+    real_q = rng.random((Q, P)) < 0.9
+    return slot_col, prog, chunk_q, off_q, real_q
+
+
+@pytest.mark.parametrize("contended", [False, True])
+@pytest.mark.parametrize("Q,P,S,Hp,C", [(16, 4, 8, 480, 32),
+                                        (8, 2, 4, 256, 64)])
+def test_claim_plain_matches_jax_kernel_twin_and_fixpoint(
+        Q, P, S, Hp, C, contended):
+    rng = np.random.default_rng(Q * 1000 + Hp + contended)
+    slot_col, prog, chunk_q, off_q, real_q = _claim_case(
+        rng, Q, P, S, Hp, C, contended)
+    hit, found = tpk.claim_select_plain(
+        _t(slot_col), _t(prog), _t(chunk_q), _t(off_q), _t(real_q),
+        C=C, dpp=DPP)
+    assert hit.dtype == torch.int32 and found.dtype == torch.bool
+    j_hit, j_found = jpk.claim_select(
+        jnp.asarray(slot_col), jnp.asarray(prog), jnp.asarray(chunk_q),
+        jnp.asarray(off_q), jnp.asarray(real_q), C=C, dpp=DPP)
+    n_hit, n_found = jpk.claim_select_np(slot_col, prog, chunk_q, off_q,
+                                         real_q, C=C, dpp=DPP)
+    f_hit, f_found = tde._claim_fixpoint(
+        _t(slot_col), _t(prog), _t(chunk_q), _t(off_q), _t(real_q),
+        C=C, dpp=DPP)
+    for want_hit, want_found in ((j_hit, j_found), (n_hit, n_found),
+                                 (f_hit, f_found)):
+        assert np.array_equal(found.numpy(), np.asarray(want_found))
+        assert np.array_equal(hit.numpy(), np.asarray(want_hit))
+
+
+def test_claim_plain_claims_are_unique():
+    rng = np.random.default_rng(8)
+    slot_col, prog, chunk_q, off_q, real_q = _claim_case(
+        rng, 32, 2, 4, 256, 16, contended=True)
+    hit, found = tpk.claim_select_plain(
+        _t(slot_col), _t(prog), _t(chunk_q), _t(off_q), _t(real_q),
+        C=16, dpp=DPP)
+    for p in range(2):
+        taken = hit[found[:, p], p].tolist()
+        assert len(taken) > 1 and len(set(taken)) == len(taken)
+    # contention is real: some real rounds find every eligible slot taken
+    assert bool((~found & _t(real_q)).any())
+
+
+def _select_case(rng, kind, Q, P, S, Hp, C, R, max_q):
+    T = Hp + S * R
+    slot_col = rng.integers(0, C, size=(P, S, Hp)).astype(np.uint16)
+    prog = rng.integers(0, S * C, size=(P, Hp)).astype(np.uint32)
+    prog[rng.random((P, Hp)) < 0.5] = DPP
+    tag = rng.integers(0, T, size=(P, Hp)).astype(np.int32)
+    table = rng.integers(0, C, size=(P, T, S)).astype(np.uint16)
+    repl_idx = (rng.integers(0, C, size=(P, S, R))
+                + np.arange(S)[None, :, None] * C).astype(np.uint32)
+    hist = rng.integers(0, R, size=(P, S)).astype(np.int32)
+    finished = rng.integers(0, max_q // 2, size=(P,)).astype(np.int32)
+    idx_q = rng.integers(0, S * C, size=(Q, P)).astype(np.int32)
+    if kind == "contended":
+        idx_q[:] = int(rng.integers(0, S * C))
+    elif kind == "budget":
+        # one replacement left in every chunk, one admission left overall
+        hist[:] = R - 1
+        finished[:] = max_q - 1
+        idx_q[Q // 2:] = idx_q[0]
+    elif kind == "dummy":
+        idx_q[rng.random((Q, P)) < 0.5] = -1
+        idx_q[:, 0] = -1
+        hist[:, 0] = 0      # a dummy round's ig is then -1
+    rnd = rng.integers(0, C, size=(Q, P, S)).astype(np.uint32)
+    return slot_col, prog, tag, table, repl_idx, hist, finished, idx_q, rnd
+
+
+SEL_NAMES = ("hit", "ok_q", "ok_r", "ig", "chunk", "idxu")
+
+
+@pytest.mark.parametrize("kind", ["random", "contended", "budget", "dummy"])
+def test_select_full_plain_matches_jax_kernel_and_xla_routes(kind):
+    Q, P, S, Hp, C, R, max_q = 6, 4, 8, 480, 32, 5, 1000
+    rng = np.random.default_rng(["random", "contended", "budget",
+                                 "dummy"].index(kind) + 40)
+    (slot_col, prog, tag, table, repl_idx, hist, finished, idx_q,
+     rnd) = _select_case(rng, kind, Q, P, S, Hp, C, R, max_q)
+    kw = dict(C=C, R=R, Hp=Hp, S=S, max_q=max_q, dpp=DPP)
+    sel, qs = tpk.select_full_plain(
+        _t(slot_col), _t(prog), _t(tag), _t(table), _t(repl_idx), _t(hist),
+        _t(finished), _t(idx_q), _t(rnd), **kw)
+
+    j_sel, j_qs = jpk.select_full(
+        jnp.asarray(slot_col), jnp.asarray(prog), jnp.asarray(tag),
+        jnp.asarray(table), jnp.asarray(repl_idx), jnp.asarray(hist),
+        jnp.asarray(finished), jnp.asarray(idx_q), jnp.asarray(rnd), **kw)
+    x_sel, x_qs = jax_pir_select(
+        jnp.asarray(table), jnp.asarray(repl_idx),
+        (jnp.asarray(tag), jnp.asarray(prog), None, jnp.asarray(slot_col),
+         jnp.asarray(hist), jnp.asarray(finished)),
+        jnp.asarray(idx_q), jnp.asarray(rnd), k=1, route="xla", **kw)
+    f_sel, f_qs = tde._pir_select(
+        _t(table), _t(repl_idx),
+        (_t(tag), _t(prog), None, _t(slot_col), _t(hist), _t(finished)),
+        _t(idx_q), _t(rnd), route="xla", **kw)
+    for name, w_sel, w_qs in (("jax kernel", j_sel, j_qs),
+                              ("jax xla", x_sel, x_qs),
+                              ("port xla", f_sel, f_qs)):
+        assert np.array_equal(qs.numpy(), np.asarray(w_qs).astype(np.int32)), \
+            name
+        for i, field in enumerate(SEL_NAMES):
+            assert np.array_equal(sel[i].numpy(), np.asarray(w_sel[i])), \
+                (name, field)
+    ok_q, ok_r, ig = sel[1], sel[2], sel[3]
+    assert bool(ok_q.any())
+    if kind == "budget":
+        assert int(ok_q.sum(dim=0).max()) == 1 and bool((ok_r & ~ok_q).any())
+    if kind == "dummy":
+        assert bool((ig == -1).any())
+
+
+def _engine_pair(route, n=2048, seed=0, prep_seed=7):
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32)
+    ref = JaxEngine(n, 32, 32, raw, 20, kernel_route=route)
+    got = TorchEngine(n, 32, 32, raw, 20, device="cpu", kernel_route=route)
+    ref.preprocessing(rng=np.random.default_rng(prep_seed))
+    got.preprocessing(rng=np.random.default_rng(prep_seed))
+    return raw, ref, got
+
+
+def _assert_same_state(ref, got):
+    want = {k: np.asarray(v).astype(np.uint32) for k, v in ref.state.items()}
+    have = state_to_numpy(got.state)
+    for key in STATE_KEYS:
+        assert np.array_equal(have[key], want[key]), key
+    assert got.queries_made_in_partition == ref.queries_made_in_partition
+
+
+@pytest.mark.parametrize("route", ["xla", "pallas", "fused"])
+def test_engine_route_matches_jax_engine(route):
+    """Prep, three query batches (spread, duplicate, one partition
+    overflowing) and one contended round: identical answers and state."""
+    raw, ref, got = _engine_pair(route)
+    assert got.kernel_route == route
+    _assert_same_state(ref, got)
+    c = ref.config
+    rng = np.random.default_rng(2)
+    spread = [int(i * c.partition_size + rng.integers(0, c.partition_size))
+              for i in range(c.partition_num)] * 2
+    for ids in (spread, [7] * 32, list(range(100, 132))):
+        out = got.query(ids)
+        assert np.array_equal(out, ref.query(ids))
+        _assert_same_state(ref, got)
+    for r, idx in enumerate(spread):
+        assert np.array_equal(got.cache[idx], raw[idx]), r
+    # contended round: every round of every partition asks index 17
+    p = ref.params
+    Q, P = 16, c.partition_num
+    idx_q = np.full((Q, P), 17, np.int32)
+    rand_offs = (np.random.default_rng(9).integers(
+        0, 2**32, size=(Q, P, p.set_size), dtype=np.uint64)
+        & np.uint64(p.chunk_mask)).astype(np.uint32)
+    ref.state, e_ref, ok_ref = ref._online(idx_q, rand_offs)
+    e_got, ok_got = got._online(idx_q, rand_offs)
+    assert np.array_equal(ok_got.numpy(), np.asarray(ok_ref))
+    assert np.array_equal(e_got.numpy().view(np.uint32), np.asarray(e_ref))
+    assert 1 <= int(ok_got.sum(dim=0).min()) < Q
+    _assert_same_state(ref, got)
+
+
+def test_fused_search_fused_route_matches_jax():
+    """The fused search on route "fused", with the JAX search's own draws
+    handed to the port: ids, steps, counters and state match."""
+    import jax
+
+    from pacmann_tpu.private.fused_search import FusedPrivateSearch as JS
+    from pacmann_tpu.private.fused_search import _draw_step_randoms
+    from pacmann_tpu.private.oracle import pack_vertex_db
+    from pacmann_tpu_torch.private.fused_search import (
+        FusedPrivateSearch as TS)
+
+    rng = np.random.default_rng(31)
+    n, d, m = 1024, 8, 8
+    vectors = rng.integers(0, 8, size=(n, d)).astype(np.float32)
+    graph = rng.integers(0, n, size=(n, m))
+    raw = pack_vertex_db(vectors, graph)
+    sids = rng.choice(n, 32, replace=False)
+    ref_e = JaxEngine(n, 4 * (d + m), m, raw, 8, kernel_route="fused")
+    got_e = TorchEngine(n, 4 * (d + m), m, raw, 8, device="cpu",
+                        kernel_route="fused")
+    searches = []
+    for e, Search in ((ref_e, JS), (got_e, TS)):
+        e.preprocessing(rng=np.random.default_rng(99))
+        searches.append(Search(e, sids, vectors[sids], graph[sids], dim=d,
+                               m=m, n=n))
+    ref, got = searches
+    queries = rng.integers(0, 8, size=(1, d)).astype(np.float32)
+    ids_r, st_r = ref.search(queries, k=5, max_step=5, parallel=3, seed=7,
+                             return_steps=True)
+    # the JAX search's own per-step draws for seed 7
+    P = ref_e.config.partition_num
+    draws = _draw_step_randoms(
+        jax.random.split(jax.random.PRNGKey(7), 5), Qn=1, parallel=3, m=m,
+        n=n, quota=3 * m // P, P=P, S=ref_e.params.set_size,
+        C=ref_e.params.chunk_size)
+    ids_g, st_g = got.search(queries, k=5, max_step=5, parallel=3,
+                             step_randoms=[np.asarray(a) for a in draws],
+                             return_steps=True)
+    assert (ids_g >= 0).any()
+    assert np.array_equal(ids_g, ids_r) and np.array_equal(st_g, st_r)
+    assert np.array_equal(got.fetch_stats, ref.fetch_stats)
+    _assert_same_state(ref_e, got_e)
+
+
+def test_resolve_route(monkeypatch):
+    monkeypatch.delenv("PACMANN_PROTOCOL_ROUTE", raising=False)
+    assert tde.resolve_route(None, "cpu") == "xla"
+    assert tde.resolve_route("fused", "cpu") == "fused"
+    assert tde.resolve_route("auto", "cpu") == "xla"
+    assert tde.resolve_route("auto", "cuda") == "pallas"
+    monkeypatch.setenv("PACMANN_PROTOCOL_ROUTE", "pallas")
+    assert tde.resolve_route(None, "cpu") == "pallas"
+    assert tde.resolve_route("xla", "cpu") == "xla"     # explicit wins
+    monkeypatch.setenv("PACMANN_PROTOCOL_ROUTE", "auto")
+    assert tde.resolve_route(None, "cpu") == "xla"
+    for bad in ("triton", "Fused", ""):
+        with pytest.raises(ValueError):
+            tde.resolve_route(bad, "cpu")
+    with pytest.raises(ValueError):
+        TorchEngine(2048, 32, 32, np.zeros((2048, 8), np.uint32), 20,
+                    device="cpu", kernel_route="cuda")
+
+
+def test_cpu_tensors_take_the_plain_versions(monkeypatch):
+    """A CPU tensor never reaches cuda_lib; the kernel wrappers refuse it."""
+    def no_cuda(*a, **k):
+        raise AssertionError("cuda_lib reached with CPU tensors")
+
+    monkeypatch.setattr(cuda_lib, "load", no_cuda)
+    monkeypatch.setattr(cuda_lib, "function", no_cuda)
+    rng = np.random.default_rng(5)
+    Q, P, S, Hp, C, R, max_q = 4, 2, 4, 64, 16, 3, 50
+    args = [_t(a) for a in _select_case(rng, "random", Q, P, S, Hp, C, R,
+                                        max_q)]
+    kw = dict(C=C, R=R, Hp=Hp, S=S, max_q=max_q, dpp=DPP)
+    counts = (tpk.select_full_cuda.launches, tpk.claim_select_cuda.launches)
+    sel, qs = tpk.select_full(*args, **kw)
+    sel_p, qs_p = tpk.select_full_plain(*args, **kw)
+    assert torch.equal(qs, qs_p)
+    slot_col, prog = args[0], args[1]
+    chunk_q, off_q, real_q = sel[4], sel[5] % C, args[7] >= 0
+    hit, found = tpk.claim_select(slot_col, prog, chunk_q, off_q, real_q,
+                                  C=C, dpp=DPP)
+    assert torch.equal(hit, sel[0])
+    assert counts == (tpk.select_full_cuda.launches,
+                      tpk.claim_select_cuda.launches)
+    with pytest.raises(ValueError):
+        tpk.select_full_cuda(*args, **kw)
+    with pytest.raises(ValueError):
+        tpk.claim_select_cuda(slot_col, prog, chunk_q, off_q, real_q, C=C,
+                              dpp=DPP)
+
+
+def test_shared_memory_plan_is_refused_beyond_the_limit():
+    """The kernels keep one partition's claimed set and programmed chunks
+    in shared memory; a shape beyond it raises before any launch."""
+    assert tpk.smem_bytes(3584, 124) <= tpk._SMEM_LIMIT      # SIFT1M shape
+    with pytest.raises(ValueError):
+        tpk._check_smem(10_000, 124, "select_full")

@@ -81,6 +81,7 @@ def test_port_imports_no_jax():
     """The port never loads jax: a fresh interpreter imports every module
     of the package and finds no jax in sys.modules."""
     code = ("import sys, pacmann_tpu_torch.private.fused_search, "
-            "pacmann_tpu_torch.pir.convert, pacmann_tpu_torch.ops.aes; "
+            "pacmann_tpu_torch.pir.convert, pacmann_tpu_torch.ops.aes, "
+            "pacmann_tpu_torch.ops.protocol_kernels; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], check=True)
