@@ -7,27 +7,35 @@ n = 1,000,000 entries of 640 B (128 f32 || 32 u32), batch 32 (16
 partitions), FailureProbLog2 = 8. Phases, in order:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build kernels K1 (csrc/aes_mmo.cu), K2 (csrc/xor_gather.cu) and
-     K3/K4 (csrc/protocol.cu), one nvcc each, all started together;
+  2. build kernels K1 and K5 (csrc/aes_mmo.cu), K2 (csrc/xor_gather.cu)
+     and K3/K4 (csrc/protocol.cu), one nvcc each, all started together;
   3. each kernel against its plain torch version on the card at the main
-     path's shapes, bit-equal, both timed with CUDA events: K1 also
-     spot-checked against the numpy AES oracle; K3 (select_full) and K4
-     (claim_select) at Q = 6 and 96 on uniform, contended and budget-edge
-     rounds. Then, per protocol route ("xla", "pallas", "fused"), the CUDA
-     engine + fused search against the same code on the CPU (plain
-     versions) at a small size, bit-equal; and the three routes against
-     each other at full size: the same answers and state over ten
-     batch-96 batches;
-  4. the main path, once per route, each with the launch counters set to
-     0 just before it and read just after: the engine (one warm and three
-     timed preprocessing runs, then ten query batches of 96 ids; every
-     answered row equals its raw row, success at least 0.98), and on
-     routes "xla" and "fused" fused private search, groups 1 and 16
+     path's shapes, bit-equal, both timed with CUDA events, beside its
+     bound (the least time the card could take for the same work): K1
+     also spot-checked against the numpy AES oracle; K5 (the table-free
+     PRF) at Q = 6 and 96 and against K1's table at the same points; K3
+     (select_full) and K4 (claim_select) at Q = 6 and 96 on uniform,
+     contended and budget-edge rounds. Then the CUDA engine + fused search
+     against the same code on the CPU (plain versions) at a small size,
+     bit-equal, on each protocol route ("xla", "pallas", "fused") and
+     table-free on "xla" and "pallas"; and those five engines against each
+     other at full size: the same answers and state (all but the table or
+     the round keys) over ten batch-96 batches; then the resident client
+     state with and without the table;
+  4. the main path, with the launch counters set to 0 just before each
+     path and read just after: once per route with the table, then
+     table-free on "xla" and "pallas": the engine (one warm and three timed
+     preprocessing runs, then ten query batches of 96 ids; every answered
+     row equals its raw row, success at least 0.98), and, except on the
+     table engine's "pallas", fused private search, groups 1 and 16
      (max_step 20, parallel 3, k 10; fetch success within 0.03 of the
-     analytic bound, params.expected_success_rate);
-  5. every path launched K1 and K2, route "pallas" K4 and route "fused"
-     K3, and no path the other route's kernel; then _pir_select's time
-     per call on each route.
+     analytic bound, params.expected_success_rate); then a table-free
+     "pallas" engine in measure_comm mode: three batch-96 batches with the
+     same answers and state as the unmeasured table engine, and message
+     bytes equal to the analytic model;
+  5. every path launched K1 and K2, route "pallas" K4 and the table
+     engine's "fused" K3, every table-free path K5, and no path another
+     route's kernel; then _pir_select's time per call on each route.
 
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Any failed phase raises (non-zero exit,
@@ -55,7 +63,21 @@ DIM, M = 128, 32                      # 128 f32 || 32 u32 neighbor ids
 ENTRY_BYTES = 4 * (DIM + M)
 N, BATCH, FAIL = 1_000_000, 32, 8
 ROUTES = ("xla", "pallas", "fused")
-KERNELS = ("aes_mmo_tables", "xor_gather", "claim_select", "select_full")
+TABLE_FREE_ROUTES = ("xla", "pallas")
+KERNELS = ("aes_mmo_tables", "xor_gather", "claim_select", "select_full",
+           "aes_mmo_points")
+
+# Peak rates of one H100 SXM for the bounds (NVIDIA's data sheet: 132 SMs,
+# 1.98 GHz boost clock, HBM3 at 3.35 TB/s): int32 logic at 64 operations
+# per SM per clock, shared-memory reads at 32 four-byte words per SM per
+# clock (32 banks, no conflicts).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
+# one AES-128-MMO evaluation in T-table form, low word only: 9 rounds of 16
+# T-table reads and 4 S-box reads; 151 XOR / OR (16 a round, 2 for the
+# first round key, 5 for the last round and the feed-forward)
+AES_LOOKUPS, AES_LOGIC_OPS = 9 * 16 + 4, 9 * 16 + 2 + 5
 
 
 class SmokeFailure(RuntimeError):
@@ -102,8 +124,51 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean ms per call of `reps` calls captured in one CUDA graph and
+    replayed, timed with CUDA events: the device's time without the host's
+    per-call gaps that cuda_ms includes when calls are short."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def bound(nbytes: float, int_ops: float = 0.0,
+          lookups: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the HBM rate and
+    the operations over their peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(int_ops / INT32_OPS_PER_S, lookups / SMEM_LOOKUPS_PER_S)
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, bound_int_ops=int_ops,
+                bound_lookups=lookups)
+
+
+def aes_bound(evals: int, nbytes: float) -> dict:
+    return bound(nbytes, evals * AES_LOGIC_OPS, evals * AES_LOOKUPS)
 
 
 def compare_k1(seed: int, T: int, S: int, chunk_mask: int) -> dict:
@@ -133,10 +198,73 @@ def compare_k1(seed: int, T: int, S: int, chunk_mask: int) -> dict:
     plain_ms = cuda_ms(lambda: aes.prf_tables_plain(rk, T, S, chunk_mask),
                        reps=2)
     evals = 16 * T * S
+    b = aes_bound(evals, 4 * evals + rk.numel())
     print(f"K1 aes_mmo_tables (16,{T},{S}): bit-equal to plain and to "
           f"aes_host on 4096 points; kernel {ms:.3f} ms "
-          f"({evals / ms / 1e6:.1f} G evals/s), plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, table=got)
+          f"({evals / ms / 1e6:.1f} G evals/s), plain {plain_ms:.3f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, table=got,
+                rk=rk)
+
+
+def k5_points(gen, P: int, Q: int, S: int, Hp: int, T: int):
+    """The main path's K5 inputs for Q rounds: tags laid out [p, {hit tag,
+    backup tag}, q, s] with hit tags in [0, Hp), backup tags in [Hp, T),
+    and xs = s; (P, 2*Q*S) int32 each."""
+    import torch
+
+    hit = torch.randint(0, Hp, (P, Q), generator=gen, dtype=torch.int32,
+                        device="cuda")
+    back = torch.randint(Hp, T, (P, Q), generator=gen, dtype=torch.int32,
+                         device="cuda")
+    tags = torch.stack([hit, back], dim=1)[..., None].expand(P, 2, Q, S)
+    xs = torch.arange(S, dtype=torch.int32, device="cuda").expand(P, 2, Q, S)
+    return (tags.reshape(P, 2 * Q * S).contiguous(),
+            xs.reshape(P, 2 * Q * S).contiguous())
+
+
+def compare_k5(rk, table, p, quotas, seed: int) -> dict:
+    """K5 against its plain version at the main path's shapes (P = 16,
+    L = 2*Q*S), every output bit-equal, and against K1's table at the same
+    (t, s) points."""
+    import torch
+
+    from pacmann_tpu_torch.ops import aes
+
+    P, T, S = table.shape
+    C, Hp = p.chunk_size, p.primary_hint_num
+    check(p.chunk_mask == C - 1, "chunk_mask is not C - 1")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    res = {}
+    for Q in quotas:
+        tags, xs = k5_points(gen, P, Q, S, Hp, T)
+        got = aes.aes_mmo_points_cuda(rk, tags, xs, C - 1)
+        want = aes.prf_eval_plain(rk, tags, xs, C - 1)
+        from_table = table[torch.arange(P, device="cuda")[:, None],
+                           tags.long(), xs.long()]
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        check(err == 0, f"K5 differs from its plain version at Q={Q} "
+              f"(max err {err})")
+        check(torch.equal(got, from_table),
+              f"K5 differs from K1's table at Q={Q}")
+        ms = cuda_ms(lambda: aes.aes_mmo_points_cuda(rk, tags, xs, C - 1),
+                     reps=50)
+        dev_ms = graph_ms(
+            lambda: aes.aes_mmo_points_cuda(rk, tags, xs, C - 1), reps=50)
+        plain_ms = cuda_ms(lambda: aes.prf_eval_plain(rk, tags, xs, C - 1),
+                           reps=3)
+        evals = tags.numel()
+        b = aes_bound(evals, 12 * evals + rk.numel())
+        print(f"K5 aes_mmo_points Q={Q} ({P},{tags.shape[1]}): bit-equal to "
+              f"plain and to K1's table; kernel {ms:.4f} ms "
+              f"({evals / ms / 1e6:.2f} G evals/s; {dev_ms:.4f} ms a call "
+              f"replayed from a CUDA graph), plain {plain_ms:.3f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        res[f"Q={Q}"] = dict(max_abs_err=err, ms=ms, graph_ms=dev_ms,
+                             plain_ms=plain_ms, **b)
+    return res
 
 
 def compare_k2(db, table, skip, quotas, seed: int) -> dict:
@@ -157,7 +285,16 @@ def compare_k2(db, table, skip, quotas, seed: int) -> dict:
         shapes[f"Q={Q}"] = torch.randint(0, C, (P, Q, S), generator=gen,
                                          dtype=torch.int32, device="cuda")
     res = {}
+    p_ix = torch.arange(P, device="cuda")[:, None, None]
+    s_ix = torch.arange(S, device="cuda")
     for name, o in shapes.items():
+        # bound: the distinct DB entries the offsets name, read once, the
+        # offsets, the parities written, and one XOR per gathered word
+        live = (o >= 0) & (o < C)
+        rows = torch.unique(((s_ix * P + p_ix) * C + o)[live]).numel()
+        b = bound(rows * k * 512 + o.numel() * 4
+                  + o.shape[0] * o.shape[1] * k * 512,
+                  int_ops=int(live.sum()) * k * 128)
         got = xor_scan.xor_gather_cuda(db, o, k)
         want = xor_scan.xor_gather_plain(db, o, k)
         torch.cuda.synchronize()
@@ -171,8 +308,10 @@ def compare_k2(db, table, skip, quotas, seed: int) -> dict:
         gb = o.numel() * k * 512 / 1e9        # entries gathered (upper bound)
         print(f"K2 xor_gather {name} offsets {tuple(o.shape)}: bit-equal to "
               f"plain; kernel {ms:.3f} ms ({gb / ms * 1e3:.1f} GB/s of "
-              f"gathered entries), plain {plain_ms:.3f} ms")
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+              f"gathered entries), plain {plain_ms:.3f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {rows} distinct "
+              "entries)")
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
     return res
 
 
@@ -215,6 +354,35 @@ def protocol_inputs(gen, kind: str, Q: int, table, p, P: int,
             idx_q, ri(C, Q, P, S)]
 
 
+def protocol_bounds(a, sel, S: int, Hp: int) -> tuple[dict, dict]:
+    """K3's and K4's bounds on one round set, counting what its data
+    needs: each real round's slot-column row (distinct (p, chunk)), the
+    program points, and for K3 each served round's tag, table row and
+    replacement index, each unserved round's dummy row, the budgets; the
+    outputs once. Operations: three compares per slot of a real round."""
+    import torch
+
+    slot_col, prog, tag, table, repl_idx, hist, finished, idx_q, rnd = a
+    hit, ok_q, ok_r, ig, chunk, idxu = sel
+    Q, P = idx_q.shape
+    T = table.shape[1]
+    p_ix = torch.arange(P, device=idx_q.device)[None, :].expand(Q, P)
+    real = idx_q >= 0
+    rows = torch.unique((p_ix * S + chunk)[real]).numel()
+    ops = int(real.sum()) * Hp * 3
+    qp = Q * P
+    k4 = bound(rows * Hp * 4 + prog.numel() * 4 + qp * (4 + 4 + 1)
+               + qp * (4 + 1), int_ops=ops)
+    served = int(ok_q.sum())
+    trows = torch.unique((p_ix * T + tag[p_ix, hit])[ok_q]).numel()
+    k3 = bound(rows * Hp * 4 + prog.numel() * 4 + served * (4 + 4)
+               + trows * S * 4 + (qp - served) * S * 4
+               + torch.unique((p_ix * S + chunk)).numel() * 4
+               + finished.numel() * 4 + qp * 4
+               + qp * S * 4 + qp * (4 * 4 + 2), int_ops=ops)
+    return k3, k4
+
+
 def compare_protocol(table, p, P: int, psize: int, quotas,
                      seed: int) -> dict:
     """K3 and K4 against their plain versions at the main path's shapes,
@@ -253,6 +421,9 @@ def compare_protocol(table, p, P: int, psize: int, quotas,
             row = dict(k3_err=k3_err, k4_err=k4_err, served=served,
                        found=found, real=int(real.sum()))
             if kind == "uniform":
+                k3_b, k4_b = protocol_bounds(a, sel_p, p.set_size,
+                                             p.primary_hint_num)
+                row.update(k3_bound=k3_b, k4_bound=k4_b)
                 row.update(
                     k3_ms=cuda_ms(lambda: pk.select_full_cuda(*a, **kw), 50),
                     k3_plain_ms=cuda_ms(
@@ -262,9 +433,11 @@ def compare_protocol(table, p, P: int, psize: int, quotas,
                     k4_plain_ms=cuda_ms(lambda: pk.claim_select_plain(
                         *claim_args, C=p.chunk_size, dpp=DPP), 3))
                 times = (f"; K3 kernel {row['k3_ms']:.4f} ms, plain "
-                         f"{row['k3_plain_ms']:.3f} ms; K4 kernel "
-                         f"{row['k4_ms']:.4f} ms, plain "
-                         f"{row['k4_plain_ms']:.3f} ms")
+                         f"{row['k3_plain_ms']:.3f} ms, bound "
+                         f"{k3_b['bound_ms']:.4f} ({k3_b['bound_by']}); K4 "
+                         f"kernel {row['k4_ms']:.4f} ms, plain "
+                         f"{row['k4_plain_ms']:.3f} ms, bound "
+                         f"{k4_b['bound_ms']:.4f} ({k4_b['bound_by']})")
             else:
                 times = ""
             print(f"K3 select_full + K4 claim_select Q={Q} {kind}: bit-equal "
@@ -274,10 +447,11 @@ def compare_protocol(table, p, P: int, psize: int, quotas,
     return res
 
 
-def small_parity(seed: int, route: str):
+def small_parity(seed: int, route: str, table_free: bool = False):
     """The CUDA path (kernels) and the CPU path (plain versions) of the
-    engine and the fused search on one protocol route, same seeds, small
-    size: identical state, answers and counters."""
+    engine and the fused search on one protocol route, with the table or
+    table-free, same seeds, small size: identical state, answers and
+    counters."""
     import torch
 
     from pacmann_tpu_torch.pir.convert import state_to_numpy
@@ -295,7 +469,7 @@ def small_parity(seed: int, route: str):
     runs = {}
     for dev in ("cuda", "cpu"):
         e = DevicePianoEngine(n, 4 * (d + m), m, raw, 8, device=dev,
-                              kernel_route=route)
+                              kernel_route=route, table_free=table_free)
         e.preprocessing(rng=np.random.default_rng(seed + 1))
         prep_state = state_to_numpy(e.state)
         outs = [e.query([int(i) for i in np.random.default_rng(s).integers(
@@ -324,39 +498,141 @@ def small_parity(seed: int, route: str):
     for key in a[5]:
         check(np.array_equal(a[5][key], b[5][key]),
               f"small parity: state {key} differs after search")
-    print(f"small-input parity, route {route}: CUDA path == CPU plain path "
-          "(prep state, 3 query batches, fused search ids/steps/stats, "
+    print(f"small-input parity, route {route}"
+          f"{' table-free' if table_free else ''}: CUDA path == CPU plain "
+          "path (prep state, 3 query batches, fused search ids/steps/stats, "
           "final state)")
 
 
 def route_identity(db, raw: np.ndarray, seed: int, batches: int = 10):
-    """One engine per protocol route on the same DB and seeds: identical
-    answers, and identical state after every batch of 96 ids."""
+    """One engine per protocol route, and a table-free one on "xla" and
+    "pallas", on the same DB and seeds: identical answers, and identical
+    state (every array but the table or the round keys) after every batch
+    of 96 ids."""
+    import torch
+
+    from pacmann_tpu_torch.pir.device_engine import (
+        STATE_KEYS, DevicePianoEngine)
+
+    engines = {}
+    for route, tf in [(r, False) for r in ROUTES] + [
+            (r, True) for r in TABLE_FREE_ROUTES]:
+        e = DevicePianoEngine(N, ENTRY_BYTES, BATCH, None, FAIL,
+                              packed_db=db, kernel_route=route,
+                              table_free=tf)
+        e.preprocessing(rng=np.random.default_rng(seed))
+        engines[route + (" table-free" if tf else "")] = e
+    for name, e in engines.items():
+        check(("table" in e.state) != e.table_free
+              and ("rk" in e.state) == e.table_free,
+              f"{name}: state holds {sorted(e.state)}")
+    ref = engines["xla"]
+    keys = STATE_KEYS[1:]
+    for key in keys:
+        for name, e in engines.items():
+            check(torch.equal(e.state[key], ref.state[key]),
+                  f"{name}: prep state {key} differs from xla")
+    rng = np.random.default_rng(seed + 1)
+    for b in range(batches):
+        ids = [int(i) for i in rng.integers(0, N, 96)]
+        outs = {name: e.query(ids) for name, e in engines.items()}
+        for name, e in engines.items():
+            check(np.array_equal(outs[name], outs["xla"]),
+                  f"{name}: answers differ from route xla, batch {b}")
+            for key in keys:
+                check(torch.equal(e.state[key], ref.state[key]),
+                      f"{name}: state {key} differs from xla, batch {b}")
+    print(f"route identity at full size: {', '.join(engines)} give the "
+          f"same answers and state ({', '.join(keys)}) after prep and each "
+          f"of {batches} batches of 96 ids")
+
+
+def resident_state(db, seed: int) -> dict:
+    """Bytes of client state resident after preprocessing, from
+    torch.cuda.memory_allocated before and after it (one warm prep first),
+    with the table and table-free; the difference must be the table less
+    the round keys."""
     import torch
 
     from pacmann_tpu_torch.pir.device_engine import DevicePianoEngine
 
-    engines = {}
-    for route in ROUTES:
+    out = {}
+    for tf in (False, True):
         e = DevicePianoEngine(N, ENTRY_BYTES, BATCH, None, FAIL,
-                              packed_db=db, kernel_route=route)
+                              packed_db=db, table_free=tf)
         e.preprocessing(rng=np.random.default_rng(seed))
-        engines[route] = e
-    rng = np.random.default_rng(seed + 1)
-    keys = ("tag", "prog", "primary_parity", "slot_col", "hist", "finished")
+        e.state = None
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        e.preprocessing(rng=np.random.default_rng(seed))
+        torch.cuda.synchronize()
+        out["table-free" if tf else "table"] = dict(
+            allocated=torch.cuda.memory_allocated() - before,
+            tensors=sum(t.numel() * t.element_size()
+                        for t in e.state.values()),
+            extra_storage_size=e.extra_storage_size())
+        if not tf:
+            table_bytes = e.state["table"].numel() * 4
+        del e
+    saved = out["table"]["allocated"] - out["table-free"]["allocated"]
+    print(f"resident client state after prep: table engine "
+          f"{out['table']['allocated']} B, table-free "
+          f"{out['table-free']['allocated']} B (memory_allocated deltas); "
+          f"the table-free engine holds {saved} B less (table "
+          f"{table_bytes} B); extra_storage_size (the JAX formula) "
+          f"{out['table']['extra_storage_size']:.0f} / "
+          f"{out['table-free']['extra_storage_size']:.0f} B")
+    check(abs(saved - table_bytes) <= 1 << 20,
+          f"table-free engine saves {saved} B, not the table's {table_bytes}")
+    out["saved"] = saved
+    return out
+
+
+def measure_comm_phase(db, seed: int, batches: int = 3) -> dict:
+    """A table-free "pallas" engine in measure_comm mode against the
+    unmeasured table engine on "xla", same seeds: the same answers and
+    state after each batch of 96 ids, and message bytes equal to the
+    analytic model (each round uploads quota*P offset vectors of S u32
+    and downloads quota*P entries)."""
+    import torch
+
+    from pacmann_tpu_torch.pir.device_engine import (
+        STATE_KEYS, DevicePianoEngine)
+
+    e = DevicePianoEngine(N, ENTRY_BYTES, BATCH, None, FAIL, packed_db=db,
+                          kernel_route="pallas", table_free=True,
+                          measure_comm=True)
+    ref = DevicePianoEngine(N, ENTRY_BYTES, BATCH, None, FAIL, packed_db=db,
+                            kernel_route="xla")
+    for x in (e, ref):
+        x.preprocessing(rng=np.random.default_rng(seed))
+        x._rng = np.random.default_rng(seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    P, S = e.config.partition_num, e.params.set_size
+    quota = 96 // P
+    lat = []
     for b in range(batches):
         ids = [int(i) for i in rng.integers(0, N, 96)]
-        outs = {r: e.query(ids) for r, e in engines.items()}
-        ref = engines["xla"].state
-        for r in ROUTES[1:]:
-            check(np.array_equal(outs[r], outs["xla"]),
-                  f"route {r}: answers differ from route xla, batch {b}")
-            for key in keys:
-                check(torch.equal(engines[r].state[key], ref[key]),
-                      f"route {r}: state {key} differs from xla, batch {b}")
-    print(f"route identity at full size: {', '.join(ROUTES)} give the same "
-          f"answers and state ({', '.join(keys)}) after each of {batches} "
-          "batches of 96 ids")
+        t0 = time.perf_counter()
+        out = e.query(ids)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(out, ref.query(ids)),
+              f"measure_comm: answers differ from the table engine, batch {b}")
+        for key in STATE_KEYS[1:]:
+            check(torch.equal(e.state[key], ref.state[key]),
+                  f"measure_comm: state {key} differs, batch {b}")
+    rounds = batches * (1 + e.query_retries)
+    up = rounds * quota * P * S * 4
+    down = rounds * quota * P * ENTRY_BYTES
+    print(f"measure_comm (table-free, pallas): {batches} batches of 96 ids "
+          f"equal the table engine's answers and state; uploaded "
+          f"{e.uploaded_bytes} B (model {up}), downloaded "
+          f"{e.downloaded_bytes} B (model {down}); batch ms "
+          + ", ".join(f"{t:.3f}" for t in lat))
+    check(e.uploaded_bytes == up and e.downloaded_bytes == down,
+          "measure_comm byte counts differ from the analytic model")
+    return dict(uploaded=e.uploaded_bytes, downloaded=e.downloaded_bytes,
+                batch96_ms=lat)
 
 
 def pir_select_times(engine, quotas, seed: int, reps: int = 20) -> dict:
@@ -549,37 +825,70 @@ def main() -> int:
     # 3. kernels against their plain versions at the main path's shapes,
     # then the routes against the CPU and against each other
     k1 = compare_k1(args.seed + 10, T, S, p.chunk_mask)
-    table = k1.pop("table")
+    table, k1_rk = k1.pop("table"), k1.pop("rk")
+    k5 = compare_k5(k1_rk, table, p, (6, 96), args.seed + 15)
     skip = _build_skip(P, T, Hp, R, S, engine.device)
     k2 = compare_k2(engine.db, table, skip, (6, 96), args.seed + 11)
     k34 = compare_protocol(table, p, P, c.partition_size, (6, 96),
                            args.seed + 13)
-    del table, skip
+    del table, skip, k1_rk
     torch.cuda.empty_cache()
     for route in ROUTES:
         small_parity(args.seed + 12, route)
+    for route in TABLE_FREE_ROUTES:
+        small_parity(args.seed + 12, route, table_free=True)
     route_identity(engine.db, raw, args.seed + 14)
     torch.cuda.empty_cache()
+    resident = resident_state(engine.db, args.seed + 16)
+    torch.cuda.empty_cache()
 
-    # 4. the main path once per route, launch counters from zero for each
+    # 4. the main path once per route with the table, then table-free on
+    # "xla" and "pallas", launch counters from zero for each path
     counters = {"aes_mmo_tables": aes.aes_mmo_cuda,
                 "xor_gather": xor_scan.xor_gather_cuda,
                 "claim_select": pk.claim_select_cuda,
-                "select_full": pk.select_full_cuda}
-    own = {"xla": (), "pallas": ("claim_select",), "fused": ("select_full",)}
+                "select_full": pk.select_full_cuda,
+                "aes_mmo_points": aes.aes_mmo_points_cuda}
+
+    def expected(route: str, table_free: bool) -> tuple:
+        """The kernels a path must launch; it launches no other."""
+        own = ("aes_mmo_tables", "xor_gather")
+        if route == "pallas":
+            own += ("claim_select",)
+        if table_free:
+            own += ("aes_mmo_points",)     # "fused" takes the fixpoint
+        elif route == "fused":
+            own += ("select_full",)
+        return own
+
+    def read_counts(path: str, own: tuple) -> dict:
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counters.items()}
+        print(f"path {path} launches: {got}")
+        for name, count in got.items():
+            if name in own:
+                check(count > 0, f"kernel {name} was not launched on path "
+                      f"{path}")
+            else:
+                check(count == 0, f"path {path} launched {name}")
+        return got
+
     sids = np.random.default_rng(args.seed + 30).choice(N, 1000,
                                                         replace=False)
     srows = raw[sids]
     paths, launches = {}, {}
     torch.cuda.reset_peak_memory_stats()
-    for route in ROUTES:
-        print(f"-- path {route}")
+    for route, tf in [(r, False) for r in ROUTES] + [
+            (r, True) for r in TABLE_FREE_ROUTES]:
+        path = route + (" table-free" if tf else "")
+        print(f"-- path {path}")
         e = DevicePianoEngine(N, ENTRY_BYTES, BATCH, None, FAIL,
-                              packed_db=engine.db, kernel_route=route)
+                              packed_db=engine.db, kernel_route=route,
+                              table_free=tf)
         for fn in counters.values():
             fn.launches = 0
         res = dict(engine=engine_phase(e, raw, args.seed + 20))
-        if route != "pallas":
+        if route != "pallas" or tf:
             fs = FusedPrivateSearch(
                 e, sids, np.ascontiguousarray(srows[:, :DIM]).view("<f4"),
                 srows[:, DIM:DIM + M].astype(np.int64) % N, dim=DIM, m=M,
@@ -588,56 +897,60 @@ def main() -> int:
             res["fused"] = {str(G): fused_phase(fs, G, 3,
                                                 args.seed + 40 + G)
                             for G in (1, 16)}
-        torch.cuda.synchronize()
-        launches[route] = {k: fn.launches for k, fn in counters.items()}
-        print(f"path {route} launches: {launches[route]}")
-        for name, count in launches[route].items():
-            if name in ("aes_mmo_tables", "xor_gather") or name in own[route]:
-                check(count > 0, f"kernel {name} was not launched on path "
-                      f"{route}")
-            else:
-                check(count == 0, f"path {route} launched {name}")
-        paths[route] = res
-        if route == "fused":
+        launches[path] = read_counts(path, expected(route, tf))
+        paths[path] = res
+        if path == "fused":
             select_ms = pir_select_times(e, (6, 96), args.seed + 50)
         del e
+    path = "pallas table-free measure_comm"
+    print(f"-- path {path}")
+    for fn in counters.values():
+        fn.launches = 0
+    paths[path] = measure_comm_phase(engine.db, args.seed + 60)
+    launches[path] = read_counts(path, expected("pallas", True))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"peak device memory over the paths {peak_gb:.3f} GB")
 
-    details = dict(card=card, k1=k1, k2=k2, k3_k4=k34, paths=paths,
+    details = dict(card=card, k1=k1, k2=k2, k3_k4=k34, k5=k5, paths=paths,
                    launches=launches, pir_select_ms=select_ms,
-                   peak_device_gb=peak_gb,
+                   resident_state=resident, peak_device_gb=peak_gb,
                    seconds=time.perf_counter() - t_start)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
-    total = {k: sum(launches[r][k] for r in ROUTES) for k in KERNELS}
-    k2_err = max(v["max_abs_err"] for v in k2.values())
+    total = {k: sum(n[k] for n in launches.values()) for k in KERNELS}
     k34_q96 = k34["Q=96 uniform"]
+
+    def entry(name, source, replaces, err, res, b):
+        return {"name": name, "route": "cuda",
+                "source": f"pacmann_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": total[name],
+                "max_abs_err": err, "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "aes_mmo_tables", "route": "cuda",
-         "source": "pacmann_tpu_torch/csrc/aes_mmo.cu",
-         "replaces": "pacmann_tpu/ops/aes_pallas.py:129",
-         "launches": total["aes_mmo_tables"],
-         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"]},
-        {"name": "xor_gather", "route": "cuda",
-         "source": "pacmann_tpu_torch/csrc/xor_gather.cu",
-         "replaces": "pacmann_tpu/ops/xor_scan.py:346",
-         "launches": total["xor_gather"], "max_abs_err": k2_err,
-         "ms": k2["prep"]["ms"], "plain_ms": k2["prep"]["plain_ms"]},
-        {"name": "claim_select", "route": "cuda",
-         "source": "pacmann_tpu_torch/csrc/protocol.cu",
-         "replaces": "pacmann_tpu/ops/protocol_kernels.py:119",
-         "launches": total["claim_select"],
-         "max_abs_err": max(v["k4_err"] for v in k34.values()),
-         "ms": k34_q96["k4_ms"], "plain_ms": k34_q96["k4_plain_ms"]},
-        {"name": "select_full", "route": "cuda",
-         "source": "pacmann_tpu_torch/csrc/protocol.cu",
-         "replaces": "pacmann_tpu/ops/protocol_kernels.py:287",
-         "launches": total["select_full"],
-         "max_abs_err": max(v["k3_err"] for v in k34.values()),
-         "ms": k34_q96["k3_ms"], "plain_ms": k34_q96["k3_plain_ms"]},
+        entry("aes_mmo_tables", "aes_mmo.cu",
+              "pacmann_tpu/ops/aes_pallas.py:129", k1["max_abs_err"], k1,
+              k1),
+        entry("xor_gather", "xor_gather.cu",
+              "pacmann_tpu/ops/xor_scan.py:346",
+              max(v["max_abs_err"] for v in k2.values()), k2["prep"],
+              k2["prep"]),
+        entry("claim_select", "protocol.cu",
+              "pacmann_tpu/ops/protocol_kernels.py:119",
+              max(v["k4_err"] for v in k34.values()),
+              dict(ms=k34_q96["k4_ms"], plain_ms=k34_q96["k4_plain_ms"]),
+              k34_q96["k4_bound"]),
+        entry("select_full", "protocol.cu",
+              "pacmann_tpu/ops/protocol_kernels.py:287",
+              max(v["k3_err"] for v in k34.values()),
+              dict(ms=k34_q96["k3_ms"], plain_ms=k34_q96["k3_plain_ms"]),
+              k34_q96["k3_bound"]),
+        entry("aes_mmo_points", "aes_mmo.cu",
+              "pacmann_tpu/ops/aes_pallas.py:163",
+              max(v["max_abs_err"] for v in k5.values()), k5["Q=96"],
+              k5["Q=96"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,24 +1,32 @@
-// K1: per-partition AES-128-MMO PRF offset tables, for sm_90a.
+// K1 and K5: AES-128-MMO PRF evaluations with per-partition keys, sm_90a.
 //
-// Replaces the Pallas kernel `_aes_mmo_kernel` (pacmann_tpu/ops/aes_pallas.py,
-// reached through prf_tables_pallas): out[p, t, s] =
-// low32(AES-128-MMO_{key_p}(LE64((t << 35) + s) || 0^8)) & chunk_mask.
-// The PRF input block is the words (s, t << 3, 0, 0) (pianopir/util.go:157-165)
-// and MMO is E_k(m) ^ m, so the low word is the cipher's word 0 ^ s.
+// PRF_key(t, x) = low32(AES-128-MMO_key(LE64((t << 35) + x) || 0^8)): the
+// input block is the words (x, t << 3, 0, 0) (pianopir/util.go:157-165) and
+// MMO is E_k(m) ^ m, so the low word is the cipher's word 0 ^ x. Two entry
+// points, one round function (mmo_low32):
+//   K1 aes_mmo_tables replaces the Pallas kernel `_aes_mmo_kernel`
+//      (pacmann_tpu/ops/aes_pallas.py, via prf_tables_pallas): the offset
+//      tables out[p, t, s] = PRF_{key_p}(t, s) & chunk_mask on the hint-table
+//      lattice t < T, s < S;
+//   K5 aes_mmo_points replaces `_aes_mmo_kernel_perp` (via
+//      prf_eval_fused_pallas): the table-free client's online PRF,
+//      out[p, l] = PRF_{key_p}(tags[p, l], xs[p, l]) & chunk_mask.
 //
-// The TPU kernel evaluates a bitsliced circuit because the TPU has no byte
-// lookups. Hopper does, so this is the plain T-table form: one thread per
-// (p, t, s) evaluation, grid-stride over the partition's T*S lattice, with
-// blockIdx.y selecting the partition.
+// The TPU kernels evaluate a bitsliced circuit (with the plane packing that
+// feeds it) because the TPU has no byte lookups. Hopper does, so this is the
+// plain T-table form: one thread per evaluation, grid-stride over the
+// partition's points, blockIdx.y selecting the partition.
 //
-// Bound on the H100: integer work and shared-memory lookups, about 150 per
-// evaluation (16 per round for rounds 1-9, 4 S-box reads for word 0 of the
-// last round; only the low output word is needed). The output is 4 bytes
-// per evaluation, so device memory is not the limit. Design: the four 1 KB
-// T-tables, the S-box and this partition's 44 round-key words sit in shared
-// memory, built once per block, so every lookup is an on-chip read. Random
-// lookups conflict on shared-memory banks; that is the first thing to look
-// at when making this faster.
+// Bound on the H100: shared-memory lookups and integer work, about 150
+// lookups per evaluation (16 per round for rounds 1-9, 4 S-box reads for word
+// 0 of the last round; only the low output word is needed). K1 writes 4 bytes
+// per evaluation and K5 reads 8 more, so device memory is not the limit.
+// Design: the four 1 KB T-tables, the S-box and this partition's 44 round-key
+// words sit in shared memory, built once per block, so every lookup is an
+// on-chip read. Random lookups conflict on shared-memory banks; that is the
+// first thing to look at when making this faster. At the online shapes K5
+// runs (P = 16, 1,488 to 23,808 points a partition) the launch and the
+// per-block table build are a large share of its time.
 //
 // Words are little-endian: state byte j = row (j % 4) of column (j / 4) is
 // bits 8*(j%4) of word j/4, as the FIPS-197 byte order maps onto u32 loads.
@@ -56,64 +64,104 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int n) {
   return (x << n) | (x >> (32 - n));
 }
 
-__global__ void __launch_bounds__(kThreads) aes_mmo_tables_kernel(
-    const uint32_t* __restrict__ round_keys,  // (P, 44) little-endian words
-    int32_t* __restrict__ out,                // (P, T, S)
-    uint32_t n_evals,                         // T * S
-    uint32_t S, uint32_t chunk_mask) {
-  __shared__ uint32_t te[4][256];
-  __shared__ uint32_t sbox[256];
-  __shared__ uint32_t rk[44];
-  const uint32_t p = blockIdx.y;
+struct AesTables {
+  uint32_t te[4][256];
+  uint32_t sbox[256];
+  uint32_t rk[44];
+};
+
+// Fills the block's tables with partition p's round keys; ends in a barrier.
+__device__ void load_tables(AesTables& sm, const uint32_t* __restrict__ round_keys,
+                            uint32_t p) {
   for (uint32_t i = threadIdx.x; i < 256; i += blockDim.x) {
     const uint32_t s = kSbox[i];
     const uint32_t s2 = xtime(s);
     // column contribution of a row-0 input byte: (2s, s, s, 3s)
     const uint32_t w = s2 | (s << 8) | (s << 16) | ((s2 ^ s) << 24);
-    te[0][i] = w;
-    te[1][i] = rotl32(w, 8);
-    te[2][i] = rotl32(w, 16);
-    te[3][i] = rotl32(w, 24);
-    sbox[i] = s;
+    sm.te[0][i] = w;
+    sm.te[1][i] = rotl32(w, 8);
+    sm.te[2][i] = rotl32(w, 16);
+    sm.te[3][i] = rotl32(w, 24);
+    sm.sbox[i] = s;
   }
   for (uint32_t i = threadIdx.x; i < 44; i += blockDim.x) {
-    rk[i] = round_keys[p * 44 + i];
+    sm.rk[i] = round_keys[p * 44 + i];
   }
   __syncthreads();
+}
 
+// Low word of AES-128-MMO of the block (x, hi, 0, 0) under the block's key.
+__device__ __forceinline__ uint32_t mmo_low32(const AesTables& sm, uint32_t x,
+                                              uint32_t hi) {
+  uint32_t w0 = x ^ sm.rk[0];
+  uint32_t w1 = hi ^ sm.rk[1];
+  uint32_t w2 = sm.rk[2];
+  uint32_t w3 = sm.rk[3];
+#pragma unroll
+  for (int r = 1; r < 10; ++r) {
+    // SubBytes + ShiftRows + MixColumns: output column c takes row j
+    // from input column (c + j) % 4
+    const uint32_t n0 = sm.te[0][w0 & 0xff] ^ sm.te[1][(w1 >> 8) & 0xff] ^
+                        sm.te[2][(w2 >> 16) & 0xff] ^ sm.te[3][w3 >> 24] ^ sm.rk[4 * r];
+    const uint32_t n1 = sm.te[0][w1 & 0xff] ^ sm.te[1][(w2 >> 8) & 0xff] ^
+                        sm.te[2][(w3 >> 16) & 0xff] ^ sm.te[3][w0 >> 24] ^ sm.rk[4 * r + 1];
+    const uint32_t n2 = sm.te[0][w2 & 0xff] ^ sm.te[1][(w3 >> 8) & 0xff] ^
+                        sm.te[2][(w0 >> 16) & 0xff] ^ sm.te[3][w1 >> 24] ^ sm.rk[4 * r + 2];
+    const uint32_t n3 = sm.te[0][w3 & 0xff] ^ sm.te[1][(w0 >> 8) & 0xff] ^
+                        sm.te[2][(w1 >> 16) & 0xff] ^ sm.te[3][w2 >> 24] ^ sm.rk[4 * r + 3];
+    w0 = n0;
+    w1 = n1;
+    w2 = n2;
+    w3 = n3;
+  }
+  // last round, column 0 only: SubBytes + ShiftRows + round key 10
+  const uint32_t c0 = (sm.sbox[w0 & 0xff] | (sm.sbox[(w1 >> 8) & 0xff] << 8) |
+                       (sm.sbox[(w2 >> 16) & 0xff] << 16) |
+                       (sm.sbox[w3 >> 24] << 24)) ^ sm.rk[40];
+  return c0 ^ x;  // MMO feed-forward
+}
+
+__global__ void __launch_bounds__(kThreads) aes_mmo_tables_kernel(
+    const uint32_t* __restrict__ round_keys,  // (P, 44) little-endian words
+    int32_t* __restrict__ out,                // (P, T, S)
+    uint32_t n_evals,                         // T * S
+    uint32_t S, uint32_t chunk_mask) {
+  __shared__ AesTables sm;
+  const uint32_t p = blockIdx.y;
+  load_tables(sm, round_keys, p);
   int32_t* out_p = out + static_cast<size_t>(p) * n_evals;
   const uint32_t stride = gridDim.x * blockDim.x;
   for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n_evals;
        i += stride) {
     const uint32_t t = i / S;
     const uint32_t s = i - t * S;
-    uint32_t w0 = s ^ rk[0];
-    uint32_t w1 = (t << 3) ^ rk[1];
-    uint32_t w2 = rk[2];
-    uint32_t w3 = rk[3];
-#pragma unroll
-    for (int r = 1; r < 10; ++r) {
-      // SubBytes + ShiftRows + MixColumns: output column c takes row j
-      // from input column (c + j) % 4
-      const uint32_t n0 = te[0][w0 & 0xff] ^ te[1][(w1 >> 8) & 0xff] ^
-                          te[2][(w2 >> 16) & 0xff] ^ te[3][w3 >> 24] ^ rk[4 * r];
-      const uint32_t n1 = te[0][w1 & 0xff] ^ te[1][(w2 >> 8) & 0xff] ^
-                          te[2][(w3 >> 16) & 0xff] ^ te[3][w0 >> 24] ^ rk[4 * r + 1];
-      const uint32_t n2 = te[0][w2 & 0xff] ^ te[1][(w3 >> 8) & 0xff] ^
-                          te[2][(w0 >> 16) & 0xff] ^ te[3][w1 >> 24] ^ rk[4 * r + 2];
-      const uint32_t n3 = te[0][w3 & 0xff] ^ te[1][(w0 >> 8) & 0xff] ^
-                          te[2][(w1 >> 16) & 0xff] ^ te[3][w2 >> 24] ^ rk[4 * r + 3];
-      w0 = n0;
-      w1 = n1;
-      w2 = n2;
-      w3 = n3;
-    }
-    // last round, column 0 only: SubBytes + ShiftRows + round key 10
-    const uint32_t c0 = (sbox[w0 & 0xff] | (sbox[(w1 >> 8) & 0xff] << 8) |
-                         (sbox[(w2 >> 16) & 0xff] << 16) |
-                         (sbox[w3 >> 24] << 24)) ^ rk[40];
-    out_p[i] = static_cast<int32_t>((c0 ^ s) & chunk_mask);  // MMO feed-forward
+    out_p[i] = static_cast<int32_t>(mmo_low32(sm, s, t << 3) & chunk_mask);
   }
+}
+
+__global__ void __launch_bounds__(kThreads) aes_mmo_points_kernel(
+    const uint32_t* __restrict__ round_keys,  // (P, 44) little-endian words
+    const uint32_t* __restrict__ tags,        // (P, L)
+    const uint32_t* __restrict__ xs,          // (P, L)
+    int32_t* __restrict__ out,                // (P, L)
+    uint32_t L, uint32_t chunk_mask) {
+  __shared__ AesTables sm;
+  const uint32_t p = blockIdx.y;
+  load_tables(sm, round_keys, p);
+  const size_t base = static_cast<size_t>(p) * L;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < L; i += stride) {
+    // (tag << 35) + x: the tag's bits above 28 leave the 64-bit input, as
+    // the u32 shift of the TPU kernel drops them
+    const uint32_t v = mmo_low32(sm, xs[base + i], tags[base + i] << 3);
+    out[base + i] = static_cast<int32_t>(v & chunk_mask);
+  }
+}
+
+static dim3 grid_for(uint32_t n, int P) {
+  uint32_t blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocksPerPartition) blocks = kMaxBlocksPerPartition;
+  return dim3(blocks, static_cast<unsigned int>(P));
 }
 
 // round_keys: (P, 44) u32 device words; out: (P, T, S) int32 device buffer.
@@ -122,11 +170,23 @@ extern "C" int aes_mmo_tables(const void* round_keys, void* out, int P, int T,
                               int S, unsigned int chunk_mask, void* stream) {
   if (P <= 0 || T <= 0 || S <= 0) return 0;
   const uint32_t n_evals = static_cast<uint32_t>(T) * static_cast<uint32_t>(S);
-  uint32_t blocks = (n_evals + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocksPerPartition) blocks = kMaxBlocksPerPartition;
-  dim3 grid(blocks, static_cast<unsigned int>(P));
-  aes_mmo_tables_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  aes_mmo_tables_kernel<<<grid_for(n_evals, P), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(round_keys), static_cast<int32_t*>(out),
       n_evals, static_cast<uint32_t>(S), chunk_mask);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// round_keys: (P, 44) u32 device words; tags, xs: (P, L) u32 device words;
+// out: (P, L) int32 device buffer. Returns the launch's cudaError_t.
+extern "C" int aes_mmo_points(const void* round_keys, const void* tags,
+                              const void* xs, void* out, int P, int L,
+                              unsigned int chunk_mask, void* stream) {
+  if (P <= 0 || L <= 0) return 0;
+  aes_mmo_points_kernel<<<grid_for(static_cast<uint32_t>(L), P), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(round_keys),
+      static_cast<const uint32_t*>(tags), static_cast<const uint32_t*>(xs),
+      static_cast<int32_t*>(out), static_cast<uint32_t>(L), chunk_mask);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,10 @@
 The JAX engine's state (after jax.device_get) is a dict of numpy arrays:
 u32 parities, program points and replacement indices, u16 (or u32) offset
 tables and slot columns, int32 tags and counters. The port holds every one
-of them as an int32 tensor with the same value bits (utils/u32.py).
+of them as an int32 tensor with the same value bits (utils/u32.py). A
+table-free JAX state holds the partitions' AES round keys as bit-plane
+masks (P, 11, 8, 16) in place of the table; the port holds the same keys
+as bytes, "rk" (P, 11, 16) uint8.
 """
 
 from __future__ import annotations
@@ -11,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pacmann_tpu_torch.pir.device_engine import STATE_KEYS
+from pacmann_tpu_torch.pir.device_engine import (
+    STATE_KEYS, TABLE_FREE_STATE_KEYS)
 from pacmann_tpu_torch.utils.u32 import from_u32, to_u32
 
 
@@ -24,13 +28,27 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
     raise TypeError(f"unsupported state dtype {a.dtype}")
 
 
+def rk_from_masks(masks: np.ndarray) -> np.ndarray:
+    """(P, 11, 8, 16) round-key bit-plane masks (0 or all ones) -> the
+    (P, 11, 16) uint8 round keys: bit b of key byte j is masks[.., b, j] & 1."""
+    bits = (np.asarray(masks) & 1).astype(np.uint8)
+    shifts = np.arange(8, dtype=np.uint8)[None, None, :, None]
+    return np.bitwise_or.reduce(bits << shifts, axis=2)
+
+
 def state_from_numpy(state: dict[str, np.ndarray], device) -> dict:
-    """A JAX engine's state -> the port's state on `device`. Only the
-    table engine's state converts (a table-free state has no offsets)."""
-    missing = [k for k in STATE_KEYS if k not in state]
+    """A JAX engine's state, with its table or (table-free) its masks ->
+    the port's state on `device` (STATE_KEYS or TABLE_FREE_STATE_KEYS)."""
+    table_free = "masks" in state
+    keys = TABLE_FREE_STATE_KEYS if table_free else STATE_KEYS
+    want = [k for k in keys if k != "rk"] + (["masks"] if table_free else [])
+    missing = [k for k in want if k not in state]
     if missing:
-        raise ValueError(f"state lacks {missing} (table-free state?)")
-    return {k: _to_tensor(state[k], device) for k in STATE_KEYS}
+        raise ValueError(f"state lacks {missing}")
+    out = {k: _to_tensor(state[k], device) for k in keys if k != "rk"}
+    if table_free:
+        out["rk"] = torch.from_numpy(rk_from_masks(state["masks"])).to(device)
+    return out
 
 
 def db_from_numpy(db: np.ndarray, device) -> torch.Tensor:
@@ -39,5 +57,8 @@ def db_from_numpy(db: np.ndarray, device) -> torch.Tensor:
 
 
 def state_to_numpy(state: dict) -> dict[str, np.ndarray]:
-    """The port's state -> u32 numpy arrays (same bits), for comparison."""
-    return {k: to_u32(v) for k, v in state.items()}
+    """The port's state -> u32 numpy arrays (same bits), and the round keys
+    of a table-free state as uint8, for comparison. Copies, never views."""
+    return {k: to_u32(v) if v.dtype == torch.int32
+            else v.detach().to("cpu", copy=True).numpy()
+            for k, v in state.items()}

@@ -9,6 +9,9 @@ The whole client+server state lives on one device:
        (pir.go:303-352) — kernel K2 (ops/xor_scan.py);
     3. replacement values gathered from the DB (pir.go:345-349) and the
        slot-column cache (PRF column of every primary slot).
+    A table-free engine then drops the (P, T, S) table and keeps the
+    partitions' AES round keys instead (the reference's client storage
+    model, pir.go:404-427).
 
   online (_pir_batch, one call per round of a batch):
     A. slot selection: the hit scan (pir.go:404-419) with in-batch
@@ -17,7 +20,10 @@ The whole client+server state lives on one device:
        the claim, "fused" kernel K3 for the whole selection
        (ops/protocol_kernels.py); all three give the same outcome;
     B. the query sets (the client->server message, pir.go:443-448), the
-       server's one gather-XOR (pir.go:65-88, kernel K2), the unmask;
+       server's one gather-XOR (pir.go:65-88, kernel K2), the unmask. A
+       table-free engine evaluates the hit slots' offset sets and the
+       refreshed slots' columns with the PRF (kernel K5) instead of
+       reading them from the table;
     C. the hint refresh (pir.go:460-468) as row scatters.
 
 Protocol semantics, tie orders and the numpy draw order are the JAX
@@ -44,7 +50,7 @@ from pacmann_tpu_torch.pir.params import (
     derive_batch_params,
     derive_piano_params,
 )
-from pacmann_tpu_torch.utils.u32 import first_true, from_u32
+from pacmann_tpu_torch.utils.u32 import first_true, from_u32, to_u32
 
 # Phase-C refresh form: row scatters up to this many update rows per
 # round, the dense rewrite above it (the JAX engine's threshold; both
@@ -59,8 +65,11 @@ _SCATTER_REFRESH_ROWS = 8192
 ROUTES = ("xla", "pallas", "fused")
 _DEFAULT_ROUTE = "xla"
 
+# The state of the table engine; a table-free engine holds the partitions'
+# AES round keys "rk" (P, 11, 16) uint8 in place of the offset "table".
 STATE_KEYS = ("table", "slot_col", "tag", "prog", "primary_parity",
               "backup_parity", "hist", "finished", "repl_idx", "repl_val")
+TABLE_FREE_STATE_KEYS = ("rk",) + STATE_KEYS[1:]
 
 
 def _gather_repl(db4, repl_off, k: int):
@@ -97,21 +106,28 @@ def resolve_route(route: str | None, device) -> str:
 
 
 def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
-                max_q, dpp, route=None):
+                max_q, dpp, route=None, rk=None):
     """Client phases A + B-prep: slot selection and the query sets.
 
     Returns (sel, qs), qs (Q, P, S) int32 being the per-round offset
     vectors (the client->server message, pir.go:443-448); sel carries what
     _pir_finish needs. route: see resolve_route; every route gives the
-    same hit, ok_q, ok_r, ig and qs."""
+    same hit, ok_q, ok_r, ig and qs.
+
+    rk: the partitions' AES round keys (P, 11, 16) uint8. When given, the
+    client is table-free: one PRF call (kernel K5 on CUDA) evaluates the
+    hit slots' offset sets and the refreshed slots' columns, `table` is
+    ignored, and route "fused" takes the owner fixpoint, as in the JAX
+    engine (its K3 reads the table)."""
     tag, prog, ppar, slot_col, hist, finished = carry
     Q, P = idx_q.shape
     dev = idx_q.device
     route = resolve_route(route, dev)
-    if route == "fused":
-        return protocol_kernels.select_full(
+    if route == "fused" and rk is None:
+        sel, qs = protocol_kernels.select_full(
             slot_col, prog, tag, table, repl_idx, hist, finished, idx_q,
             rnd_q, C=C, R=R, Hp=Hp, S=S, max_q=max_q, dpp=dpp)
+        return (*sel, None), qs
 
     real_q = idx_q >= 0
     idxu_q = torch.where(real_q, idx_q, 0)
@@ -142,7 +158,21 @@ def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
     # ---- Phase B-prep: the query sets
     p_ix = torch.arange(P, device=dev)[None, :]
     hit_tag = tag[p_ix, hit_q]                                  # (Q, P)
-    qs = table[p_ix, hit_tag]                                   # (Q, P, S)
+    if rk is None:
+        qs = table[p_ix, hit_tag]                               # (Q, P, S)
+        new_col = None
+    else:
+        # both (Q, P, S) sheets the table would give, in one PRF call:
+        # tags laid out [p, {hit tag, consumed backup tag}, q, s], x = s
+        btag = Hp + chunk_q * R + ig_q
+        tags = torch.stack([hit_tag.to(torch.int32), btag.to(torch.int32)])
+        tags = tags.permute(2, 0, 1)[..., None].expand(P, 2, Q, S)
+        xs = torch.arange(S, dtype=torch.int32, device=dev).expand(P, 2, Q, S)
+        vals = aes.prf_eval(rk, tags.reshape(P, 2 * Q * S),
+                            xs.reshape(P, 2 * Q * S), C - 1)
+        vals = vals.reshape(P, 2, Q, S)
+        qs = vals[:, 0].transpose(0, 1)                         # (Q, P, S)
+        new_col = vals[:, 1].transpose(0, 1)                    # (Q, P, S)
     hp = prog[p_ix, hit_q]
     hp_set = hp != dpp
     s_iota = s_ar[None, None, :]
@@ -154,7 +184,7 @@ def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
     # dummies keep the fixed access pattern (pir.go:363-371)
     qs = torch.where(ok_q[..., None], qs, rnd_q)
 
-    sel = (hit_q, ok_q, ok_r, ig_q, chunk_q, idxu_q)
+    sel = (hit_q, ok_q, ok_r, ig_q, chunk_q, idxu_q, new_col)
     return sel, qs.to(torch.int32)
 
 
@@ -197,9 +227,11 @@ def _pir_finish(repl_val, bpar, table, carry, sel, resp, *, C, R, Hp, S,
     """Client unmask + Phase-C refresh given the server response resp
     (Q, P, k*128) int32 (pir.go:451-468). Writes the refreshed rows into
     the carry's tensors in place. refresh: "scatter" or "dense"; None
-    picks scatter up to _SCATTER_REFRESH_ROWS update rows."""
+    picks scatter up to _SCATTER_REFRESH_ROWS update rows. A table-free
+    selection carries the refreshed columns in sel; `table` is then
+    ignored."""
     tag, prog, ppar, slot_col, hist, finished = carry
-    hit_q, ok_q, ok_r, ig_q, chunk_q, idxu_q = sel
+    hit_q, ok_q, ok_r, ig_q, chunk_q, idxu_q, free_col = sel
     Q, P = hit_q.shape
     dev = hit_q.device
     p_ix = torch.arange(P, device=dev)[None, :]
@@ -211,7 +243,8 @@ def _pir_finish(repl_val, bpar, table, carry, sel, resp, *, C, R, Hp, S,
     # ---- Phase C: refresh writes (slots unique per partition)
     btag = Hp + chunk_q * R + ig_q                              # (Q, P)
     new_par = bpar[p_ix, btag - Hp] ^ entries
-    new_col = table[p_ix, btag]                                 # (Q, P, S)
+    new_col = free_col if free_col is not None \
+        else table[p_ix, btag]                                  # (Q, P, S)
     if refresh is None:
         refresh = "scatter" if Q * P <= _SCATTER_REFRESH_ROWS else "dense"
     if refresh == "scatter":
@@ -249,16 +282,19 @@ def _pir_finish(repl_val, bpar, table, carry, sel, resp, *, C, R, Hp, S,
 
 
 def _pir_batch(db, table, repl_idx, repl_val, bpar, carry, idx_q, rnd_q,
-               *, C, R, Hp, S, k, max_q, dpp, refresh=None, route=None):
+               *, C, R, Hp, S, k, max_q, dpp, refresh=None, route=None,
+               rk=None):
     """Serve Q sub-queries per partition: selection (on the protocol
     route `route`), the server scan (kernel K2 on CUDA), unmask and
     refresh. carry = (tag, prog, ppar, slot_col, hist, finished) is
     updated in place; idx_q (Q, P) int32 local indices (-1 = dummy); rnd_q
-    (Q, P, S) int32 dummy offsets.
+    (Q, P, S) int32 dummy offsets; rk: the round keys of a table-free
+    client (see _pir_select), with table None.
     Returns (carry, entries (Q, P, k*128) int32, ok (Q, P) bool)."""
     Q, P = idx_q.shape
     sel, qs = _pir_select(table, repl_idx, carry, idx_q, rnd_q, C=C, R=R,
-                          Hp=Hp, S=S, max_q=max_q, dpp=dpp, route=route)
+                          Hp=Hp, S=S, max_q=max_q, dpp=dpp, route=route,
+                          rk=rk)
     resp = xor_scan.xor_server_scan(db, qs, k).reshape(Q, P, k * 128)
     return _pir_finish(repl_val, bpar, table, carry, sel, resp, C=C, R=R,
                        Hp=Hp, S=S, refresh=refresh)
@@ -288,12 +324,28 @@ class DevicePianoEngine:
     def __init__(self, db_size: int, entry_bytes: int, batch_size: int,
                  raw, failure_prob_log2: int, verbose: bool = False,
                  device: torch.device | str | None = None, packed_db=None,
-                 kernel_route: str | None = None):
+                 kernel_route: str | None = None, measure_comm: bool = False,
+                 table_free: bool = False):
         """raw: (db_size, entry_bytes/4) u32 numpy array or int32 tensor;
         packed_db: an already packed (S, P, C*k, 128) int32 tensor (raw is
-        then ignored); kernel_route: the client-protocol route of every
-        batch (ROUTES, "auto", or None for $PACMANN_PROTOCOL_ROUTE, then
-        "xla"), resolved at each batch as resolve_route says."""
+        then ignored). The DB and state live on `device`; None means the
+        packed_db's or the raw tensor's device, and "cuda" for a numpy raw
+        (which raises where CUDA is not available: the CPU is taken only
+        when asked for).
+
+        kernel_route: the client-protocol route of every batch (ROUTES,
+        "auto", or None for $PACMANN_PROTOCOL_ROUTE, then "xla"), resolved
+        at each batch as resolve_route says.
+
+        measure_comm: run each round split at the protocol messages, the
+        offset upload and the entry download crossing the host as numpy
+        buffers whose bytes are counted in uploaded_bytes /
+        downloaded_bytes (pir.go:443-448's messages).
+
+        table_free: keep no (P, T, S) offset table after preprocessing;
+        every batch evaluates the offsets it needs with the PRF (kernel K5
+        on CUDA) from the partitions' round keys. The same answers and
+        state as the table engine."""
         if kernel_route is not None:
             resolve_route(kernel_route, "cpu")    # an unknown name raises
         self.config = derive_batch_params(
@@ -313,14 +365,27 @@ class DevicePianoEngine:
             self.device = packed_db.device
             self.db = packed_db
         else:
+            if device is not None:
+                self.device = torch.device(device)
+            elif isinstance(raw, np.ndarray):
+                self.device = torch.device("cuda")
+            else:
+                self.device = raw.device
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    "DevicePianoEngine: CUDA is not available; pass "
+                    "device='cpu' to run on the CPU")
             if isinstance(raw, np.ndarray):
-                raw = from_u32(raw.reshape(db_size, entry_bytes // 4), device)
-            self.device = torch.device(device) if device is not None \
-                else raw.device
+                raw = from_u32(raw.reshape(db_size, entry_bytes // 4),
+                               self.device)
             self.db = pack_db(raw.to(self.device), S=p.set_size, P=P,
                               C=p.chunk_size, k=self.k, psize=psize)
         self.state = None
+        self.table_free = table_free
         self.kernel_route = kernel_route
+        self.measure_comm = measure_comm
+        self.uploaded_bytes = 0      # measured client->server message bytes
+        self.downloaded_bytes = 0    # measured server->client message bytes
         self.cache: dict[int, np.ndarray] = {}
         self._rng = np.random.default_rng()
         # extra fixed-shape rounds per query() batch re-issuing unserved
@@ -342,15 +407,14 @@ class DevicePianoEngine:
         db_bytes = float(self.config.db_size) * self.config.entry_bytes
         self.comm_cost_per_batch_offline = int(db_bytes / self.support_batch_num)
 
-    def _prep_device(self, keys16: list[bytes], repl_off: np.ndarray):
-        """The offline pass on the engine's device: keys16 = one AES key
-        per partition, repl_off (P, S, R) u32. Returns (table, parities,
-        repl_val, slot_col)."""
+    def _prep_device(self, rk: torch.Tensor, repl_off: np.ndarray):
+        """The offline pass on the engine's device: rk (P, 11, 16) uint8
+        round keys of the partitions' AES keys, repl_off (P, S, R) u32.
+        Returns (table, parities, repl_val, slot_col)."""
         p = self.params
         P = self.config.partition_num
         S, R, Hp = p.set_size, p.max_query_per_chunk, p.primary_hint_num
         T = Hp + S * R
-        rk = aes.round_keys(keys16).to(self.device)
         table = aes.prf_tables(rk, T, S, p.chunk_mask)          # (P, T, S)
         skip = _build_skip(P, T, Hp, R, S, self.device)
         parities = xor_scan.xor_hintgen(self.db, table, skip, self.k)
@@ -359,12 +423,14 @@ class DevicePianoEngine:
         slot_col = table[:, :Hp, :].transpose(1, 2).contiguous()
         return table, parities, repl_val, slot_col
 
-    def _new_state(self, table, parities, repl_idx, repl_val, slot_col):
+    def _new_state(self, offsets, parities, repl_idx, repl_val, slot_col):
+        """offsets: the (P, T, S) table, or a table-free engine's round
+        keys (P, 11, 16) uint8 (then the state has TABLE_FREE_STATE_KEYS)."""
         p = self.params
         P, Hp = self.config.partition_num, p.primary_hint_num
         dev = self.device
         return dict(
-            table=table,
+            {"rk" if self.table_free else "table": offsets},
             # cached PRF column per primary slot (initial tags are 0..Hp-1)
             slot_col=slot_col,                                  # (P, S, Hp)
             tag=torch.arange(Hp, dtype=torch.int32, device=dev)
@@ -400,10 +466,14 @@ class DevicePianoEngine:
         repl_idx = repl_off + (
             np.arange(S, dtype=np.uint32) * C)[None, :, None]
         keys16 = [self._rng.bytes(16) for _ in range(P)]
+        rk = aes.round_keys(keys16).to(self.device)
 
-        table, parities, repl_val, slot_col = self._prep_device(
-            keys16, repl_off)
-        self.state = self._new_state(table, parities,
+        table, parities, repl_val, slot_col = self._prep_device(rk, repl_off)
+        # a table-free engine keeps the round keys instead, the reference's
+        # client storage model: the online path re-derives the offsets
+        offsets = rk if self.table_free else table
+        del table
+        self.state = self._new_state(offsets, parities,
                                      from_u32(repl_idx, self.device),
                                      repl_val, slot_col)
         if self.device.type == "cuda":
@@ -425,32 +495,73 @@ class DevicePianoEngine:
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.int32, device=dev)
 
+        # a table-free engine draws its P keys after the zero state, as
+        # the JAX engine does
+        offsets = (aes.round_keys([self._rng.bytes(16) for _ in range(P)])
+                   .to(dev) if self.table_free else zeros(P, T, S))
         self.state = self._new_state(
-            zeros(P, T, S), zeros(P, T, self.Ep), zeros(P, S, R),
+            offsets, zeros(P, T, self.Ep), zeros(P, S, R),
             zeros(P, S, R, self.Ep), zeros(P, S, Hp))
         self.cache = {}
         self._record_stats(0.0)
 
     # -- online --------------------------------------------------------------
 
+    def _round_inputs(self, idx_q: np.ndarray, rand_offs: np.ndarray):
+        """A round's carry, its inputs on the device, and the protocol's
+        keyword arguments."""
+        p = self.params
+        st = self.state
+        carry = (st["tag"], st["prog"], st["primary_parity"],
+                 st["slot_col"], st["hist"], st["finished"])
+        idx_t = torch.from_numpy(np.asarray(idx_q, np.int32)).to(self.device)
+        kw = dict(C=p.chunk_size, R=p.max_query_per_chunk,
+                  Hp=p.primary_hint_num, S=p.set_size)
+        return carry, idx_t, from_u32(rand_offs, self.device), kw
+
     def _online(self, idx_q: np.ndarray, rand_offs: np.ndarray,
                 refresh=None):
         """One round: idx_q (Q, P) i32 local indices (-1 = dummy),
         rand_offs (Q, P, S) u32 dummy offsets. Updates the state in place;
         returns (entries (Q, P, k*128) int32, ok (Q, P) bool) tensors."""
-        p = self.params
         st = self.state
-        carry = (st["tag"], st["prog"], st["primary_parity"],
-                 st["slot_col"], st["hist"], st["finished"])
+        carry, idx_t, rnd_t, kw = self._round_inputs(idx_q, rand_offs)
         _, entries, oks = _pir_batch(
-            self.db, st["table"], st["repl_idx"], st["repl_val"],
-            st["backup_parity"], carry,
-            torch.from_numpy(np.asarray(idx_q, np.int32)).to(self.device),
-            from_u32(rand_offs, self.device),
-            C=p.chunk_size, R=p.max_query_per_chunk, Hp=p.primary_hint_num,
-            S=p.set_size, k=self.k, max_q=p.max_query_num,
-            dpp=DEFAULT_PROGRAM_POINT, refresh=refresh,
-            route=self.kernel_route)
+            self.db, st.get("table"), st["repl_idx"], st["repl_val"],
+            st["backup_parity"], carry, idx_t, rnd_t, k=self.k,
+            max_q=self.params.max_query_num, dpp=DEFAULT_PROGRAM_POINT,
+            refresh=refresh, route=self.kernel_route, rk=st.get("rk"), **kw)
+        return entries, oks
+
+    def _online_measured(self, idx_q: np.ndarray, rand_offs: np.ndarray,
+                         refresh=None):
+        """The same round split at the observable protocol messages: the
+        (Q, P, S) u32 offset upload and the (Q, P, entry) download cross
+        the host as numpy buffers and are byte-counted (pir.go:443-448's
+        messages), as in the JAX engine's _online_measured."""
+        st = self.state
+        carry, idx_t, rnd_t, kw = self._round_inputs(idx_q, rand_offs)
+        sel, qs = _pir_select(
+            st.get("table"), st["repl_idx"], carry, idx_t, rnd_t,
+            max_q=self.params.max_query_num, dpp=DEFAULT_PROGRAM_POINT,
+            route=self.kernel_route, rk=st.get("rk"), **kw)
+        # client -> server: the offset vectors, materialised on the host
+        qs_msg = to_u32(qs)
+        self.uploaded_bytes += qs_msg.nbytes
+        Q, P, _ = qs_msg.shape
+        resp = xor_scan.xor_server_scan(
+            self.db, from_u32(qs_msg, self.device), self.k)
+        # server -> client: one entry-sized parity per sub-query (the
+        # padded lanes beyond entry_u32 are structurally zero and are not
+        # part of the message, matching the reference's DBEntrySize*8)
+        E = self.config.entry_bytes // 4
+        resp_msg = to_u32(resp.reshape(Q, P, self.Ep))[:, :, :E]
+        self.downloaded_bytes += resp_msg.nbytes
+        resp_padded = np.zeros((Q, P, self.Ep), np.uint32)
+        resp_padded[:, :, :E] = resp_msg
+        _, entries, oks = _pir_finish(
+            st["repl_val"], st["backup_parity"], st.get("table"), carry, sel,
+            from_u32(resp_padded, self.device), refresh=refresh, **kw)
         return entries, oks
 
     def query(self, ids, retries: int | None = None) -> np.ndarray:
@@ -483,6 +594,8 @@ class DevicePianoEngine:
                 if idx not in seen and idx not in self.cache:
                     want.append(idx)
                     seen.add(idx)
+            online = (self._online_measured if self.measure_comm
+                      else self._online)
             for rnd in range(1 + max(retries, 0)):
                 # public-state-only guard: skip a retry round only when
                 # even its worst-case consumption cannot fit the window
@@ -504,7 +617,7 @@ class DevicePianoEngine:
                 rand_offs = (self._rng.integers(
                     0, 2**32, size=(quota, P, p.set_size), dtype=np.uint64)
                     & np.uint64(p.chunk_mask)).astype(np.uint32)
-                entries, oks = self._online(idx_q, rand_offs)
+                entries, oks = online(idx_q, rand_offs)
                 entries = entries[:, :, :E].cpu().numpy().view(np.uint32)
                 oks = oks.cpu().numpy()
                 failed: list[int] = []
@@ -551,6 +664,21 @@ class DevicePianoEngine:
 
     def local_storage_size(self) -> float:
         return self.params.local_storage_bytes() * self.config.partition_num
+
+    def extra_storage_size(self) -> float:
+        """Client memory beyond the reference model (pir.go:178-190), by
+        the JAX engine's formula: the resident PRF offset table (P, T, S)
+        and the hit-scan slot-column cache (P, S, Hp), counted at 2 bytes an
+        offset while the chunk fits u16 (4 above), as the JAX engine stores
+        them; a table-free engine counts the cache alone. The port holds
+        offsets as int32 (utils/u32.py), so its resident bytes are twice
+        this at every current scale."""
+        p = self.params
+        nbytes = 2 if p.chunk_size <= (1 << 16) else 4
+        per_part = p.set_size * p.primary_hint_num * nbytes
+        if not self.table_free:
+            per_part += p.total_tags * p.set_size * nbytes
+        return float(per_part * self.config.partition_num)
 
     def comm_cost_per_batch_online(self) -> int:
         return int(self.params.comm_cost_per_query_bytes()

@@ -12,7 +12,8 @@ Each beam step, over a group of concurrent queries:
      the rest are dropped (batch-pir.go:194-216);
   4. PIR: _pir_batch serves quota sub-queries per partition on the
      engine's protocol route (kernel K3 or K4 selects on CUDA when the
-     route says so; kernel K2 answers);
+     route says so; kernel K2 answers; a table-free engine's offsets come
+     from kernel K5);
   5. decode (vector || neighbors) and update the visited table
      (search.go:187-207).
 
@@ -327,9 +328,12 @@ class FusedPrivateSearch:
                  idx_q) = _route_core(
                     *beam, rand_all[g], psize=e.config.partition_size,
                     m=self.m, P=P, parallel=parallel, quota=quota, n=self.n)
+                # a table-free engine's state holds round keys, not the
+                # table: the PRF (kernel K5) stands in for the table reads
                 _, entries, oks = _pir_batch(
-                    e.db, st["table"], st["repl_idx"], st["repl_val"],
-                    st["backup_parity"], carry, idx_q, rnd_all[g], **pir_kw)
+                    e.db, st.get("table"), st["repl_idx"], st["repl_val"],
+                    st["backup_parity"], carry, idx_q, rnd_all[g],
+                    rk=st.get("rk"), **pir_kw)
                 _update_core(
                     beam, stats, queries_d, entries, oks,
                     (fid, known, is_first, keep, slot, fo_idx, has_first),
