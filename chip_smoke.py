@@ -4,24 +4,31 @@
 Drives the port's main path (pacmann_tpu_torch) once, the way bench.py
 drives the JAX package, at the reference's SIFT1M-shaped deployment:
 n = 1,000,000 entries of 640 B (128 f32 || 32 u32), batch 32 (16
-partitions), FailureProbLog2 = 8. Phases, in order:
+partitions), FailureProbLog2 = 8; then the plaintext search path at
+SIFT1M's shape (1M integer-valued vectors of 128 dimensions, 1,000
+queries). Phases, in order:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build kernels K1 and K5 (csrc/aes_mmo.cu), K2 (csrc/xor_gather.cu)
-     and K3/K4 (csrc/protocol.cu), one nvcc each, all started together;
+  2. build kernels K1 and K5 (csrc/aes_mmo.cu), K2 (csrc/xor_gather.cu),
+     K3/K4 (csrc/protocol.cu) and K6 (csrc/l2_distance.cu), one nvcc
+     each, all started together;
   3. each kernel against its plain torch version on the card at the main
      path's shapes, bit-equal, both timed with CUDA events, beside its
      bound (the least time the card could take for the same work): K1
      also spot-checked against the numpy AES oracle; K5 (the table-free
      PRF) at Q = 6 and 96 and against K1's table at the same points; K3
      (select_full) and K4 (claim_select) at Q = 6 and 96 on uniform,
-     contended and budget-edge rounds. Then the CUDA engine + fused search
-     against the same code on the CPU (plain versions) at a small size,
-     bit-equal, on each protocol route ("xla", "pallas", "fused") and
-     table-free on "xla" and "pallas"; and those five engines against each
-     other at full size: the same answers and state (all but the table or
-     the round keys) over ten batch-96 batches; then the resident client
-     state with and without the table;
+     contended and budget-edge rounds; K6 (l2_distance) at 1,000 x 1M x
+     128 and at the blocks the plaintext paths launch, bit-equal on
+     integer data and within 1e-5 (|q|^2 + |p|^2) on floats (its plain
+     version is the cuBLAS form). Then the CUDA engine +
+     fused search against the same code on the CPU (plain versions) at a
+     small size, bit-equal, on each protocol route ("xla", "pallas",
+     "fused") and table-free on "xla" and "pallas", and the plaintext
+     engine and search_paths_all the same way at n = 65,536; and those
+     five PIR engines against each other at full size: the same answers
+     and state (all but the table or the round keys) over ten batch-96
+     batches; then the resident client state with and without the table;
   4. the main path, with the launch counters set to 0 just before each
      path and read just after: once per route with the table, then
      table-free on "xla" and "pallas": the engine (one warm and three timed
@@ -32,10 +39,17 @@ partitions), FailureProbLog2 = 8. Phases, in order:
      analytic bound, params.expected_success_rate); then a table-free
      "pallas" engine in measure_comm mode: three batch-96 batches with the
      same answers and state as the unmeasured table engine, and message
-     bytes equal to the analytic model;
-  5. every path launched K1 and K2, route "pallas" K4 and the table
+     bytes equal to the analytic model; then the plaintext paths: exact
+     search (ids through K6 equal to the cuBLAS form's and to a float64
+     scan's; ms/query; cli.exact_search.main once), the plaintext engine
+     at full width on a random graph (ms/query, recall@10 against
+     brute_force_knn), and recall on the exact 32-NN graph of 131,072
+     manifold vectors built by brute_force_knn, at least 0.2 above a
+     random graph's;
+  5. every PIR path launched K1 and K2, route "pallas" K4 and the table
      engine's "fused" K3, every table-free path K5, and no path another
-     route's kernel; then _pir_select's time per call on each route.
+     route's kernel nor K6; every plaintext path K6 and no PIR kernel;
+     then _pir_select's time per call on each route.
 
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Any failed phase raises (non-zero exit,
@@ -65,15 +79,21 @@ N, BATCH, FAIL = 1_000_000, 32, 8
 ROUTES = ("xla", "pallas", "fused")
 TABLE_FREE_ROUTES = ("xla", "pallas")
 KERNELS = ("aes_mmo_tables", "xor_gather", "claim_select", "select_full",
-           "aes_mmo_points")
+           "aes_mmo_points", "l2_distance")
+# the plaintext search's full width: SIFT1M's shape and value range, with
+# 1,000 queries (exact search, the engine, ground truth)
+L2_Q, L2_N, KNN_N = 1000, 1_000_000, 131_072
+KNN_BLOCK = 65536                     # brute_force_knn's default point block
 
 # Peak rates of one H100 SXM for the bounds (NVIDIA's data sheet: 132 SMs,
 # 1.98 GHz boost clock, HBM3 at 3.35 TB/s): int32 logic at 64 operations
 # per SM per clock, shared-memory reads at 32 four-byte words per SM per
-# clock (32 banks, no conflicts).
+# clock (32 banks, no conflicts), fp32 FMA at 128 lanes per SM per clock
+# (2 flops each: 66.9 TFLOP/s).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
+FP32_FLOPS_PER_S = 132 * 128 * 2 * 1.98e9
 # one AES-128-MMO evaluation in T-table form, low word only: 9 rounds of 16
 # T-table reads and 4 S-box reads; 151 XOR / OR (16 a round, 2 for the
 # first round key, 5 for the last round and the feed-forward)
@@ -154,17 +174,18 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
-def bound(nbytes: float, int_ops: float = 0.0,
-          lookups: float = 0.0) -> dict:
+def bound(nbytes: float, int_ops: float = 0.0, lookups: float = 0.0,
+          flops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over the HBM rate and
     the operations over their peak rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(int_ops / INT32_OPS_PER_S, lookups / SMEM_LOOKUPS_PER_S)
+    t_ops = max(int_ops / INT32_OPS_PER_S, lookups / SMEM_LOOKUPS_PER_S,
+                flops / FP32_FLOPS_PER_S)
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes=nbytes, bound_int_ops=int_ops,
-                bound_lookups=lookups)
+                bound_lookups=lookups, bound_flops=flops)
 
 
 def aes_bound(evals: int, nbytes: float) -> dict:
@@ -755,6 +776,258 @@ def fused_phase(fs, G: int, reps: int, seed: int) -> dict:
                 refreshes=fs.refreshes)
 
 
+def int_vectors(rng, n: int) -> np.ndarray:
+    """n vectors of SIFT1M's shape and value range: (n, 128) u8, 0-255."""
+    return rng.integers(0, 256, (n, DIM), dtype=np.uint8)
+
+
+def manifold_vectors(rng, basis: np.ndarray, n: int) -> np.ndarray:
+    """n integer-valued vectors (u8, 0-255) near a 12-dimensional linear
+    manifold of the 128 dimensions (basis (12, 128)): data a graph can
+    navigate, as SIFT's low intrinsic dimension makes it."""
+    ld = basis.shape[0]
+    z = rng.standard_normal((n, ld), dtype=np.float32)
+    return np.clip(np.rint(128 + 32 * (z @ basis) / np.sqrt(ld)), 0,
+                   255).astype(np.uint8)
+
+
+def l2_bound(Q: int, B: int, D: int) -> dict:
+    """K6's bound: the products and norms as fp32 FMAs (2 flops each), the
+    inputs read once and the (Q, B) output written once."""
+    return bound(4 * (Q * D + B * D + Q * B),
+                 flops=2 * Q * B * D + 2 * (Q + B) * D)
+
+
+def compare_k6(seed: int) -> dict:
+    """K6 against its plain version at the exact-search shape (1,000 x 1M x
+    128) and at the shapes the plaintext paths launch: knn_search's
+    (1,000, 65,536) block and (1,000, 16,960) tail and the kNN graph's
+    (1,024, 65,536) block. Bit-equal on integer-valued data (0-255: every
+    partial sum is exact), within 1e-5 (|q|^2 + |p|^2) elementwise on
+    uniform [0, 1) floats. Timed on the floats in turns, kernel / plain /
+    kernel; the plain version is itself the library (cuBLAS) form. Also
+    timed: exact search's 16 K6 launches over 1M points alone."""
+    import torch
+
+    from pacmann_tpu_torch.ops import distance
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    tail = L2_N - L2_N // KNN_BLOCK * KNN_BLOCK
+    errs = {}
+    for kind in ("integer", "float"):
+        if kind == "integer":
+            q, p = (torch.randint(0, 256, (rows, DIM), generator=gen,
+                                  device="cuda").float()
+                    for rows in (1024, L2_N))
+        else:
+            q, p = (torch.rand((rows, DIM), generator=gen, device="cuda")
+                    for rows in (1024, L2_N))
+        for qs, ps in ((q[:L2_Q], p), (q[:L2_Q], p[:KNN_BLOCK]),
+                       (q[:L2_Q], p[L2_N - tail:]), (q, p[:KNN_BLOCK])):
+            got = distance.l2_distance_cuda(qs, ps)
+            want = distance.l2_distance_plain(qs, ps)
+            torch.cuda.synchronize()
+            shape = f"({qs.shape[0]}, {ps.shape[0]})"
+            if kind == "integer":
+                check(torch.equal(got, want), f"K6 is not bit-equal to its "
+                      f"plain version on integers at {shape}")
+            diff = got.sub_(want).abs_()
+            del want
+            errs[kind] = max(errs.get(kind, 0.0), float(diff.max()))
+            if kind == "float":
+                scale = (qs * qs).sum(1)[:, None] + (ps * ps).sum(1)[None, :]
+                check(bool((diff <= scale.mul_(1e-5)).all()),
+                      f"K6 differs from its plain version by more than 1e-5 "
+                      f"(|q|^2 + |p|^2) on floats at {shape} (max err "
+                      f"{float(diff.max())})")
+                del scale
+            del got, diff
+    torch.cuda.empty_cache()
+    q = q[:L2_Q].contiguous()
+
+    def k6():
+        distance.l2_distance_cuda(q, p)
+
+    def plain():
+        distance.l2_distance_plain(q, p)
+
+    def blocked():
+        for b0 in range(0, L2_N, KNN_BLOCK):
+            distance.l2_distance_cuda(q, p[b0:b0 + KNN_BLOCK])
+
+    turns = [cuda_ms(fn, reps=5) for fn in (k6, plain, k6)]
+    blocked_ms = cuda_ms(blocked, reps=3)
+    ms = (turns[0] + turns[2]) / 2
+    b = l2_bound(L2_Q, L2_N, DIM)
+    tflops = 2 * L2_Q * L2_N * DIM / ms / 1e9
+    print(f"K6 l2_distance ({L2_Q},{DIM})x({L2_N},{DIM}) and the launch "
+          f"shapes (1000|1024, {KNN_BLOCK}|{tail}): bit-equal to plain on "
+          f"integer data; max err {errs['float']:.3g} on floats (within "
+          f"1e-5 (|q|^2+|p|^2)); kernel {turns[0]:.3f}/{turns[2]:.3f} ms "
+          f"({tflops:.1f} TFLOP/s), plain (cuBLAS form) {turns[1]:.3f} ms, "
+          f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}; the output alone "
+          f"{4 * L2_Q * L2_N / HBM_BYTES_PER_S * 1e3:.3f} ms); in exact "
+          f"search's {-(-L2_N // KNN_BLOCK)} blocks {blocked_ms:.3f} ms")
+    return dict(max_abs_err=max(errs.values()), errs=errs, ms=ms,
+                turns_ms=turns, plain_ms=turns[1], library_ms=turns[1],
+                blocked_ms=blocked_ms, tflops=tflops, **b)
+
+
+def exact_search_phase(seed: int) -> dict:
+    """Exact search at full width through the port's entry: 1,000 queries
+    over 1M integer-valued vectors, k = 10 (graph/recall.py::knn_search,
+    what cli/exact_search.py runs). The ids through K6 equal those through
+    the cuBLAS form (use_pallas=False) and, for 8 queries, a float64 scan's
+    in stable order; then cli.exact_search.main once at -n 1000000
+    -q 1000. Timed: the whole search (host clock, ending in the copy of
+    the ids to the host); compare_k6 times its K6 launches alone."""
+    import torch
+
+    from pacmann_tpu_torch.cli import exact_search
+    from pacmann_tpu_torch.graph.recall import knn_search
+
+    rng = np.random.default_rng(seed)
+    v = torch.from_numpy(int_vectors(rng, L2_N)).cuda().float()
+    q = torch.from_numpy(int_vectors(rng, L2_Q)).cuda().float()
+    ids = knn_search(v, q, 10)[1]
+    check(torch.equal(ids, knn_search(v, q, 10, use_pallas=False)[1]),
+          "exact search: the ids through K6 differ from the cuBLAS form's")
+    v64 = v.double()
+    for i in range(8):
+        d64 = ((v64 - q[i].double()) ** 2).sum(1)
+        check(torch.equal(ids[i], torch.sort(d64, stable=True).indices[:10]),
+              f"exact search: query {i} differs from the float64 scan")
+    del v64, d64
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        knn_search(v, q, 10)[1].cpu()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    print(f"exact search n={L2_N} q={L2_Q} k=10: ids through K6 == cuBLAS "
+          f"form == float64 scan (8 queries); {med * 1e3 / L2_Q:.4f} ms/query"
+          f", {L2_N * L2_Q / med / 1e9:.1f} G dist/s (median of 3: "
+          + ", ".join(f"{t * 1e3:.2f}" for t in times) + " ms)")
+    check(exact_search.main(["-n", str(L2_N), "-q", str(L2_Q)]) == 0,
+          "cli.exact_search.main failed")
+    return dict(batch_ms=[t * 1e3 for t in times],
+                ms_per_query=med * 1e3 / L2_Q,
+                gdist_per_s=L2_N * L2_Q / med / 1e9)
+
+
+def plaintext_parity(seed: int) -> None:
+    """PlaintextEngine on CUDA against the same code on the CPU: n = 65,536
+    integer-valued vectors, a uniform random graph with 1 % all-zero rows
+    (failed fetches), 200 queries, the same step randoms: ids and steps
+    bit-equal, with benchmarking off and on; then search_paths_all over
+    every vertex (4 steps, parallel 2), bit-equal."""
+    import torch
+
+    from pacmann_tpu_torch.graph.beam import PlaintextEngine, search_paths_all
+
+    rng = np.random.default_rng(seed)
+    n, Qn = 65_536, 200
+    v = int_vectors(rng, n)
+    g = rng.integers(0, n, (n, M)).astype(np.int32)
+    g[rng.random(n) < 0.01] = 0
+    q = int_vectors(rng, Qn)
+    rand = rng.integers(0, n, (Qn, 20, 3, M)).astype(np.int32)
+    prand = rng.integers(0, n, (n, 4, 2, M)).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        e = PlaintextEngine(v, g, device=dev)
+        out[dev] = [*e.search(q, 10, 20, 3, step_randoms=rand),
+                    *e.search(q, 10, 20, 3, step_randoms=rand,
+                              benchmarking=True),
+                    search_paths_all(e.vectors, e.graph, e.start_ids, prand,
+                                     n=n, m=M, max_step=4, parallel=2,
+                                     block=8192).cpu().numpy()]
+    for name, a, b in zip(("ids", "steps", "benchmarking ids",
+                           "benchmarking steps", "search_paths_all"),
+                          out["cuda"], out["cpu"]):
+        check(np.array_equal(a, b), f"plaintext parity: {name} differ "
+              "between CUDA and the CPU")
+    check((out["cuda"][0] >= 0).all(), "plaintext parity: empty answers")
+    print(f"plaintext parity n={n}: CUDA == CPU (ids and steps of {Qn} "
+          "queries, benchmarking off and on; search_paths_all over every "
+          "vertex)")
+
+
+def plaintext_phase(seed: int) -> dict:
+    """The plaintext engine at full width: 1M integer-valued vectors of
+    SIFT1M's shape, a uniform random graph of degree 32 (synth_raw's
+    neighbour ids), 1,000 queries, k = 10, max_step 20, parallel 3
+    (cli/ann.py's defaults): one warm and five timed batches (host clock;
+    each ends in the answers' copy to the host), then recall@10 against
+    brute_force_knn (K6). Recall is near 0 on a random graph: no limit."""
+    from pacmann_tpu_torch.graph.beam import PlaintextEngine
+    from pacmann_tpu_torch.graph.recall import brute_force_knn, compute_recall
+
+    rng = np.random.default_rng(seed)
+    v = int_vectors(rng, L2_N)
+    g = rng.integers(0, L2_N, (L2_N, M))
+    q = int_vectors(rng, L2_Q)
+    engine = PlaintextEngine(v, g)
+    check(engine.device.type == "cuda", "the engine did not go to CUDA")
+    engine.search(q, 10, 20, 3, seed=seed)                       # warm
+    lat = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        ids, steps = engine.search(q, 10, 20, 3, seed=seed + 1 + i)
+        lat.append(time.perf_counter() - t0)
+        check(ids.shape == (L2_Q, 10) and ((ids >= 0) & (ids < L2_N)).all(),
+              "plaintext engine: answers are not 1000x10 valid ids")
+    rec = compute_recall(brute_force_knn(engine.vectors, q, 10), ids, 10)
+    med = float(np.median(lat))
+    print(f"plaintext engine n={L2_N} m={M} q={L2_Q} (20 steps, parallel 3): "
+          f"batch ms " + ", ".join(f"{t * 1e3:.2f}" for t in lat)
+          + f"; median {med * 1e3 / L2_Q:.4f} ms/query; recall@10 "
+          f"{rec:.4f} on a uniform random graph (no limit)")
+    return dict(batch_ms=[t * 1e3 for t in lat],
+                ms_per_query=med * 1e3 / L2_Q, recall=rec)
+
+
+def knn_graph_phase(seed: int) -> dict:
+    """Recall on a real graph: n = 131,072 integer-valued manifold vectors,
+    their exact 32-NN graph (self dropped) from brute_force_knn through K6
+    (about 4.4 TFLOP); PlaintextEngine's recall@10 on it must exceed recall
+    on a uniform random graph of the same degree by at least 0.2 (the twin
+    of test_built_graph_beats_random_graph)."""
+    import torch
+
+    from pacmann_tpu_torch.graph.beam import PlaintextEngine
+    from pacmann_tpu_torch.graph.recall import brute_force_knn, compute_recall
+
+    rng = np.random.default_rng(seed)
+    basis = rng.standard_normal((12, DIM), dtype=np.float32)
+    vt = torch.from_numpy(manifold_vectors(rng, basis, KNN_N)).cuda().float()
+    q = manifold_vectors(rng, basis, L2_Q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    knn = brute_force_knn(vt, vt, M + 1)
+    build_s = time.perf_counter() - t0
+    is_self = knn == np.arange(KNN_N)[:, None]
+    is_self[~is_self.any(axis=1), -1] = True
+    graph = knn[~is_self].reshape(KNN_N, M)
+    gnd = brute_force_knn(vt, q, 10)
+    rec = {}
+    for name, gr in (("knn", graph),
+                     ("random", rng.integers(0, KNN_N, (KNN_N, M)))):
+        ids, _ = PlaintextEngine(vt, gr).search(q, 10, 20, 3, seed=seed)
+        rec[name] = compute_recall(gnd, ids, 10)
+    print(f"kNN graph n={KNN_N} m={M}: built in {build_s:.3f} s "
+          f"({2 * KNN_N ** 2 * DIM / build_s / 1e12:.1f} TFLOP/s end to end, "
+          f"top-k included); recall@10 {rec['knn']:.4f} on it vs "
+          f"{rec['random']:.4f} on a random graph")
+    check(rec["knn"] >= rec["random"] + 0.2,
+          f"kNN-graph recall {rec['knn']:.4f} is not 0.2 above the random "
+          f"graph's {rec['random']:.4f}")
+    return dict(build_s=build_s, recall_knn=rec["knn"],
+                recall_random=rec["random"])
+
+
 def gpu_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -774,7 +1047,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     try:
-        from pacmann_tpu_torch.ops import aes, xor_scan
+        from pacmann_tpu_torch.ops import aes, distance, xor_scan
         from pacmann_tpu_torch.ops import protocol_kernels as pk
         from pacmann_tpu_torch.pir.device_engine import (
             DevicePianoEngine, _build_skip)
@@ -793,7 +1066,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     # 2. build, one nvcc per source, all started together
-    names = ("aes_mmo", "xor_gather", "protocol")
+    names = ("aes_mmo", "xor_gather", "protocol", "l2_distance")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(cuda_lib.load, names))
@@ -833,10 +1106,13 @@ def main() -> int:
                            args.seed + 13)
     del table, skip, k1_rk
     torch.cuda.empty_cache()
+    k6 = compare_k6(args.seed + 17)
+    torch.cuda.empty_cache()
     for route in ROUTES:
         small_parity(args.seed + 12, route)
     for route in TABLE_FREE_ROUTES:
         small_parity(args.seed + 12, route, table_free=True)
+    plaintext_parity(args.seed + 18)
     route_identity(engine.db, raw, args.seed + 14)
     torch.cuda.empty_cache()
     resident = resident_state(engine.db, args.seed + 16)
@@ -848,7 +1124,8 @@ def main() -> int:
                 "xor_gather": xor_scan.xor_gather_cuda,
                 "claim_select": pk.claim_select_cuda,
                 "select_full": pk.select_full_cuda,
-                "aes_mmo_points": aes.aes_mmo_points_cuda}
+                "aes_mmo_points": aes.aes_mmo_points_cuda,
+                "l2_distance": distance.l2_distance_cuda}
 
     def expected(route: str, table_free: bool) -> tuple:
         """The kernels a path must launch; it launches no other."""
@@ -908,10 +1185,21 @@ def main() -> int:
         fn.launches = 0
     paths[path] = measure_comm_phase(engine.db, args.seed + 60)
     launches[path] = read_counts(path, expected("pallas", True))
+    # the plaintext paths: K6 and no PIR kernel
+    for i, (path, run) in enumerate((("exact search", exact_search_phase),
+                                     ("plaintext", plaintext_phase),
+                                     ("knn graph", knn_graph_phase))):
+        print(f"-- path {path}")
+        torch.cuda.empty_cache()
+        for fn in counters.values():
+            fn.launches = 0
+        paths[path] = run(args.seed + 70 + i)
+        launches[path] = read_counts(path, ("l2_distance",))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"peak device memory over the paths {peak_gb:.3f} GB")
 
-    details = dict(card=card, k1=k1, k2=k2, k3_k4=k34, k5=k5, paths=paths,
+    details = dict(card=card, k1=k1, k2=k2, k3_k4=k34, k5=k5, k6=k6,
+                   paths=paths,
                    launches=launches, pir_select_ms=select_ms,
                    resident_state=resident, peak_device_gb=peak_gb,
                    seconds=time.perf_counter() - t_start)
@@ -927,7 +1215,8 @@ def main() -> int:
                 "replaces": replaces, "launches": total[name],
                 "max_abs_err": err, "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": b["bound_ms"],
-                "bound_by": b["bound_by"], "library_ms": None}
+                "bound_by": b["bound_by"],
+                "library_ms": res.get("library_ms")}
 
     print(json.dumps({"kernels": [
         entry("aes_mmo_tables", "aes_mmo.cu",
@@ -951,6 +1240,8 @@ def main() -> int:
               "pacmann_tpu/ops/aes_pallas.py:163",
               max(v["max_abs_err"] for v in k5.values()), k5["Q=96"],
               k5["Q=96"]),
+        entry("l2_distance", "l2_distance.cu",
+              "pacmann_tpu/ops/distance.py:91", k6["max_abs_err"], k6, k6),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

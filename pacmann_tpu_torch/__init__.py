@@ -4,12 +4,18 @@ Hopper (H100).
 The JAX package (pacmann_tpu) is the reference; this package imports torch
 and numpy, never jax. Same layer map as the reference:
 
-  ops/       PRF offset tables (kernel K1, csrc/aes_mmo.cu) and the
-             gather-XOR parity scan (kernel K2, csrc/xor_gather.cu), each
+  ops/       PRF offset tables (kernel K1, csrc/aes_mmo.cu), the
+             gather-XOR parity scan (kernel K2, csrc/xor_gather.cu), the
+             client-protocol selects (K3/K4, csrc/protocol.cu) and the
+             tiled L2 distance (kernel K6, csrc/l2_distance.cu), each
              beside its plain torch version; the numpy AES oracle.
   pir/       parameter derivation, DB layout, the device-resident batch
              PIR engine, and state conversion from the JAX engine.
   private/   fused private search: beam traversal + PIR per step.
+  graph/     plaintext beam search (batched and host), exact k-NN,
+             recall and graph quality.
+  io/        bvecs/fvecs/ivecs/npy/txt loaders.
+  cli/       exact search and the plaintext ANN command.
   utils/     u32-as-int32 helpers, stable top-k, the nvcc/ctypes loader.
   csrc/      CUDA C++ sources for sm_90a, built on first use.
 """

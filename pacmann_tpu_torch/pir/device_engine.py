@@ -50,6 +50,7 @@ from pacmann_tpu_torch.pir.params import (
     derive_batch_params,
     derive_piano_params,
 )
+from pacmann_tpu_torch.utils import cuda_lib
 from pacmann_tpu_torch.utils.u32 import first_true, from_u32, to_u32
 
 # Phase-C refresh form: row scatters up to this many update rows per
@@ -365,16 +366,7 @@ class DevicePianoEngine:
             self.device = packed_db.device
             self.db = packed_db
         else:
-            if device is not None:
-                self.device = torch.device(device)
-            elif isinstance(raw, np.ndarray):
-                self.device = torch.device("cuda")
-            else:
-                self.device = raw.device
-            if self.device.type == "cuda" and not torch.cuda.is_available():
-                raise RuntimeError(
-                    "DevicePianoEngine: CUDA is not available; pass "
-                    "device='cpu' to run on the CPU")
+            self.device = cuda_lib.default_device(raw, device)
             if isinstance(raw, np.ndarray):
                 raw = from_u32(raw.reshape(db_size, entry_bytes // 4),
                                self.device)

@@ -34,19 +34,13 @@ import time
 import numpy as np
 import torch
 
+from pacmann_tpu_torch.graph.beam import (finish_topk, first_occurrence,
+                                          pop_frontier)
 from pacmann_tpu_torch.pir.device_engine import DevicePianoEngine, _pir_batch
 from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT
 from pacmann_tpu_torch.utils.u32 import as_f32, first_true, smallest_k
 
 INF = float("inf")
-
-
-def _first_occurrence(ids: torch.Tensor) -> torch.Tensor:
-    """(Qn, B) -> (Qn, B) bool: True where no earlier column holds the id."""
-    B = ids.shape[1]
-    eq = ids[:, :, None] == ids[:, None, :]
-    lower = torch.ones((B, B), dtype=torch.bool, device=ids.device).tril(-1)
-    return ~(eq & lower).any(dim=2)
 
 
 def _seed_beam(queries, start_ids, start_vecs, start_nbrs, *, parallel,
@@ -86,17 +80,12 @@ def _route_core(ids, dist, nbrs, explored, rand_ids, *, psize, m, P,
     """Steps 1-3: frontier pop, dedup, FCFS routing. Updates `explored` in
     place; returns (fid (F,), known (Qn, parallel*m), is_first, keep, slot,
     fo_idx, has_first (F,), idx_q (quota, P))."""
-    Qn, cap = ids.shape
+    Qn = ids.shape[0]
     F = Qn * parallel * m
     dev = ids.device
 
     # 1. frontier pop
-    masked = torch.where(explored, INF, dist)
-    d, slots = smallest_k(masked, parallel)                 # (Qn, parallel)
-    valid = d < INF
-    pop_hit = (torch.arange(cap, device=dev)[None, None, :]
-               == slots[:, :, None]) & valid[:, :, None]
-    explored |= pop_hit.any(dim=1)
+    slots, valid = pop_frontier(dist, explored, parallel)
     popped = nbrs[torch.arange(Qn, device=dev)[:, None], slots]
     fid = torch.where(valid[:, :, None], popped, rand_ids).reshape(F)
     fid = fid.clamp(0, n - 1)
@@ -157,7 +146,7 @@ def _update_core(beam, stats, queries, entries, oks, route_out, step_idx,
     nb_q = nb.reshape(Qn, pm, m)
     d_q = cdist.reshape(Qn, pm)
     ok_q = res_ok.reshape(Qn, pm)
-    accept = ~known & _first_occurrence(fid_q) & (nb_q != 0).any(dim=2) & ok_q
+    accept = ~known & first_occurrence(fid_q) & (nb_q != 0).any(dim=2) & ok_q
 
     # contiguous write window [base, base + parallel*m)
     base = parallel + step_idx * pm
@@ -170,20 +159,6 @@ def _update_core(beam, stats, queries, entries, oks, route_out, step_idx,
     # fetch-success accounting: distinct wanted fetches, quota survivors,
     # PIR-served survivors
     stats += torch.stack([is_first.sum(), keep.sum(), oks.sum()])
-
-
-def _finish_topk(ids, dist, *, topk, parallel, m):
-    """Top-k of the visited table -> (ids, reach_steps). Slots [0, parallel)
-    hold the seeds (step 0) and step g writes the window starting at
-    parallel + g*parallel*m, so a slot's step is
-    (slot - parallel) // (parallel*m)."""
-    d, slot = smallest_k(dist, topk)
-    valid = d < INF
-    out = torch.where(valid, torch.gather(ids, 1, slot), -1)
-    steps = torch.div((slot - parallel).clamp(min=0), parallel * m,
-                      rounding_mode="floor")
-    steps = torch.where(valid, steps, -1)
-    return out, steps
 
 
 class FusedPrivateSearch:
@@ -344,8 +319,8 @@ class FusedPrivateSearch:
             e.finished_batch_num += seg * (F // e.config.batch_size)
             base += seg
 
-        out_ids, out_steps = _finish_topk(beam[0], beam[1], topk=k,
-                                          parallel=parallel, m=self.m)
+        out_ids, out_steps = finish_topk(beam[0], beam[1], topk=k,
+                                         parallel=parallel, m=self.m)
         # dedup'd and dummy rows never spend budget: resync the estimate to
         # the measured consumption (max of served and backup burn)
         e.queries_made_in_partition = e.consumed()

@@ -85,6 +85,22 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
+def default_device(x, device=None) -> torch.device:
+    """Where an entry point given `x` runs: `device` if given, else a
+    tensor's own device, else CUDA. Raises where CUDA is asked for and not
+    available: the CPU is taken only when asked for."""
+    if device is not None:
+        dev = torch.device(device)
+    elif isinstance(x, torch.Tensor):
+        dev = x.device
+    else:
+        dev = torch.device("cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return dev
+
+
 def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype):
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")

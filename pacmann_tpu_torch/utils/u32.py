@@ -47,6 +47,19 @@ def smallest_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def smallest_k_keyed(vals: torch.Tensor, ids: torch.Tensor, k: int):
+    """(values, ids) of the k smallest (value, id) pairs along the last
+    axis, by value and then by the lower id: smallest_k's order where the
+    ids are column indices, without sorting whole rows. For non-negative
+    float32 values (distances) and ids in [0, 2^32): one top-k over int64
+    keys (value bits << 32 | id), which are unique and order like the
+    pairs."""
+    key = (vals.contiguous().view(torch.int32).to(torch.int64) << 32) \
+        | ids.to(torch.int64)
+    key = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
+    return (key >> 32).to(torch.int32).view(torch.float32), key & 0xFFFFFFFF
+
+
 def first_true(mask: torch.Tensor, dim: int) -> torch.Tensor:
     """Index of the first True along dim (0 where none), like jnp.argmax on
     bool; torch.argmax takes no bool and returns the first maximum."""
