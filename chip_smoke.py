@@ -9,9 +9,10 @@ SIFT1M's shape (1M integer-valued vectors of 128 dimensions, 1,000
 queries). Phases, in order:
 
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build kernels K1 and K5 (csrc/aes_mmo.cu), K2 (csrc/xor_gather.cu),
-     K3/K4 (csrc/protocol.cu) and K6 (csrc/l2_distance.cu), one nvcc
-     each, all started together;
+  2. build kernels K1 and K5 (csrc/aes_mmo.cu), K2 and the attic's K7a-
+     K7c (csrc/xor_gather.cu), K3/K4 (csrc/protocol.cu), K6
+     (csrc/l2_distance.cu) and the attic's K7d (csrc/refresh_parity.cu),
+     one nvcc each, all started together;
   3. each kernel against its plain torch version on the card at the main
      path's shapes, bit-equal, both timed with CUDA events, beside its
      bound (the least time the card could take for the same work): K1
@@ -21,7 +22,19 @@ queries). Phases, in order:
      contended and budget-edge rounds; K6 (l2_distance) at 1,000 x 1M x
      128 and at the blocks the plaintext paths launch, bit-equal on
      integer data and within 1e-5 (|q|^2 + |p|^2) on floats (its plain
-     version is the cuBLAS form). Then the CUDA engine +
+     version is the cuBLAS form). The repair pins: K2 at k = 5 and 8
+     (entries over 2 KiB) at the prep and Q = 96 shapes, and K3/K4 at
+     (P, S, Hp) = (16, 216, 14,336) (n = 7M: 72,608 B of shared memory a
+     CTA, above the 48 KiB default). The attic phase: one call of each
+     attic entry point with the launch counters from zero (each K7 kernel
+     launched, no other kernel), then each against its plain version,
+     bit-equal and timed beside its bound: K7b (xor_hintgen_pallas) and
+     K7a (xor_hintgen_mm_s8p, on to_plane_major_s8 of the DB, sc = 1 and
+     4) on the engine's DB with K1's table and the skip mask; K7c
+     (xor_scan_pallas) on the flat single-server layout of 1M x 640 B
+     (C = 2,048, S = 492, B = 57,632, skip 25 %); K7d (refresh_parity) at
+     P = 16, Hp = 3,584, Ep = 256 for Q = 6, 96 and repeated hits. Then
+     the CUDA engine +
      fused search against the same code on the CPU (plain versions) at a
      small size, bit-equal, on each protocol route ("xla", "pallas",
      "fused") and table-free on "xla" and "pallas", and the plaintext
@@ -39,7 +52,12 @@ queries). Phases, in order:
      analytic bound, params.expected_success_rate); then a table-free
      "pallas" engine in measure_comm mode: three batch-96 batches with the
      same answers and state as the unmeasured table engine, and message
-     bytes equal to the analytic model; then the plaintext paths: exact
+     bytes equal to the analytic model; then the repair pins on the
+     engine, each DB freed before the next: n = 1M entries of 3,968 B
+     (k = 8, 4.16 GB packed) on route "xla", and n = 5M entries of 640 B
+     (Hp = 14,336, 5.23 GB packed) on "pallas" and "fused" (one warm and
+     one timed prep, three batch-96 batches, every answered row equal to
+     its raw row, success at least 0.98); then the plaintext paths: exact
      search (ids through K6 equal to the cuBLAS form's and to a float64
      scan's; ms/query; cli.exact_search.main once), the plaintext engine
      at full width on a random graph (ms/query, recall@10 against
@@ -48,8 +66,9 @@ queries). Phases, in order:
      random graph's;
   5. every PIR path launched K1 and K2, route "pallas" K4 and the table
      engine's "fused" K3, every table-free path K5, and no path another
-     route's kernel nor K6; every plaintext path K6 and no PIR kernel;
-     then _pir_select's time per call on each route.
+     route's kernel nor K6; every plaintext path K6 and no PIR kernel; no
+     PIR or plaintext path an attic kernel; then _pir_select's time per
+     call on each route.
 
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Any failed phase raises (non-zero exit,
@@ -78,8 +97,20 @@ ENTRY_BYTES = 4 * (DIM + M)
 N, BATCH, FAIL = 1_000_000, 32, 8
 ROUTES = ("xla", "pallas", "fused")
 TABLE_FREE_ROUTES = ("xla", "pallas")
+# the attic's kernels (pacmann_tpu_torch/ops/attic.py), by entry point:
+# K7a, K7b, K7c, K7d
+ATTIC = ("xor_hintgen_mm_s8p", "xor_hintgen_pallas", "xor_scan_pallas",
+         "refresh_parity")
 KERNELS = ("aes_mmo_tables", "xor_gather", "claim_select", "select_full",
-           "aes_mmo_points", "l2_distance")
+           "aes_mmo_points", "l2_distance", *ATTIC)
+# the repair pins: 3,968 B entries (960 f32 || 32 u32, k = 8 rows; K2 took
+# at most 4), and 640 B entries at n = 5M (Hp = 14,336, S = 156) and 7M
+# (S = 216), where K3/K4's shared-memory plan passes 48 KiB
+WIDE_ENTRY_BYTES = 3968
+BIG_N, PROTOCOL_PIN_N = 5_000_000, 7_000_000
+# K7c's flat single-server layout: n = 1M entries of 640 B in one
+# partition (C = 2,048, S = 492, B = T = 57,632)
+FLAT_S, FLAT_C, FLAT_B = 492, 2048, 57_632
 # the plaintext search's full width: SIFT1M's shape and value range, with
 # 1,000 queries (exact search, the engine, ground truth)
 L2_Q, L2_N, KNN_N = 1000, 1_000_000, 131_072
@@ -288,7 +319,27 @@ def compare_k5(rk, table, p, quotas, seed: int) -> dict:
     return res
 
 
-def compare_k2(db, table, skip, quotas, seed: int) -> dict:
+def gather_bound(off, skip, C: int, k: int) -> tuple[dict, int]:
+    """The bound of a gather-XOR over (P, B, S) offsets (skip: a mask
+    beside them, or None): the distinct DB entries the live offsets name,
+    read once (k rows of 512 B), the offsets and the mask read once, the
+    (P, B, k*128) parities written once, and one XOR per gathered word.
+    Also returns the count of distinct entries."""
+    import torch
+
+    P, B, S = off.shape
+    live = (off >= 0) & (off < C)
+    if skip is not None:
+        live &= ~skip
+    p_ix = torch.arange(P, device=off.device)[:, None, None]
+    s_ix = torch.arange(S, device=off.device)
+    rows = torch.unique(((s_ix * P + p_ix) * C + off)[live]).numel()
+    mask_bytes = 0 if skip is None else skip.numel()
+    return bound(rows * k * 512 + off.numel() * 4 + mask_bytes
+                 + P * B * k * 512, int_ops=int(live.sum()) * k * 128), rows
+
+
+def compare_k2(db, table, skip, quotas, seed: int, k: int = 2) -> dict:
     """K2 against its plain version at the prep shape and at the online
     server-scan shapes (Q sub-queries per partition)."""
     import torch
@@ -296,7 +347,6 @@ def compare_k2(db, table, skip, quotas, seed: int) -> dict:
     from pacmann_tpu_torch.ops import xor_scan
 
     S, P, CK, _ = db.shape
-    k = 2
     C = CK // k
     off = torch.where(skip, xor_scan.SKIP, table).contiguous()
     shapes = {"prep": off}
@@ -306,16 +356,8 @@ def compare_k2(db, table, skip, quotas, seed: int) -> dict:
         shapes[f"Q={Q}"] = torch.randint(0, C, (P, Q, S), generator=gen,
                                          dtype=torch.int32, device="cuda")
     res = {}
-    p_ix = torch.arange(P, device="cuda")[:, None, None]
-    s_ix = torch.arange(S, device="cuda")
     for name, o in shapes.items():
-        # bound: the distinct DB entries the offsets name, read once, the
-        # offsets, the parities written, and one XOR per gathered word
-        live = (o >= 0) & (o < C)
-        rows = torch.unique(((s_ix * P + p_ix) * C + o)[live]).numel()
-        b = bound(rows * k * 512 + o.numel() * 4
-                  + o.shape[0] * o.shape[1] * k * 512,
-                  int_ops=int(live.sum()) * k * 128)
+        b, rows = gather_bound(o, None, C, k)
         got = xor_scan.xor_gather_cuda(db, o, k)
         want = xor_scan.xor_gather_plain(db, o, k)
         torch.cuda.synchronize()
@@ -327,13 +369,177 @@ def compare_k2(db, table, skip, quotas, seed: int) -> dict:
         plain_ms = cuda_ms(lambda: xor_scan.xor_gather_plain(db, o, k),
                            reps=2 if name == "prep" else 10)
         gb = o.numel() * k * 512 / 1e9        # entries gathered (upper bound)
-        print(f"K2 xor_gather {name} offsets {tuple(o.shape)}: bit-equal to "
+        print(f"K2 xor_gather k={k} {name} offsets {tuple(o.shape)}: "
+              f"bit-equal to "
               f"plain; kernel {ms:.3f} ms ({gb / ms * 1e3:.1f} GB/s of "
               f"gathered entries), plain {plain_ms:.3f} ms, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {rows} distinct "
               "entries)")
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
     return res
+
+
+def compare_k2_wide(table, skip, C: int, seed: int) -> dict:
+    """K2 on entries over 2 KiB (the repair of its k <= 4 limit): k = 5
+    and k = 8 on random DBs of the main deployment's geometry (S, P, C),
+    at the hint-generation shape (the table and skip mask) and the Q = 96
+    server-scan shape, each against its plain version."""
+    import torch
+
+    S, P = table.shape[2], table.shape[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    res = {}
+    for k in (5, 8):
+        db = torch.empty((S, P, C * k, 128), dtype=torch.int32,
+                         device="cuda").random_(-2**31, 2**31, generator=gen)
+        res[f"k={k}"] = compare_k2(db, table, skip, (96,), seed + k, k=k)
+        del db
+        torch.cuda.empty_cache()
+    return res
+
+
+def refresh_cases(gen, P: int, Hp: int, Ep: int) -> dict:
+    """K7d's inputs at the main deployment's parity shape: (P, Hp, Ep)
+    random parities; Q = 6 and Q = 96 rounds with hit slots unique per
+    partition and ok at about 70 %; and Q = 96 with the second half of
+    partition 0's rounds repeating its first slot (the last ok one wins)."""
+    import torch
+
+    def rand_i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="cuda").random_(
+            -2**31, 2**31, generator=gen)
+
+    ppar = rand_i32(P, Hp, Ep)
+    cases = {}
+    for name, Q in (("Q=6", 6), ("Q=96", 96), ("Q=96 repeated", 96)):
+        hit = torch.rand((P, Hp), generator=gen, device="cuda").argsort(
+            dim=1)[:, :Q].T.to(torch.int32).contiguous()
+        if name.endswith("repeated"):
+            hit[Q // 2:, 0] = hit[0, 0]
+        ok = torch.rand((Q, P), generator=gen, device="cuda") < 0.7
+        cases[name] = (ppar, rand_i32(Q, P, Ep), hit, ok)
+    return cases
+
+
+def refresh_bound(ppar, new_par, hit, ok) -> dict:
+    """K7d's bound on one case: the rows of ppar not replaced and the
+    replacing rows of new_par read once, hit and ok read once, the whole
+    (P, Hp, Ep) output written once."""
+    import torch
+
+    P, Hp, Ep = ppar.shape
+    p_ix = torch.arange(P, device=hit.device)[None, :].expand_as(hit)
+    replaced = torch.unique((p_ix * Hp + hit)[ok]).numel()
+    return bound((P * Hp - replaced) * Ep * 4 + replaced * Ep * 4
+                 + hit.numel() * 5 + P * Hp * Ep * 4)
+
+
+def attic_phase(db4, table, skip, seed: int, reset,
+                counted) -> tuple[dict, dict]:
+    """The attic's four kernels at the main deployment's shapes. First one
+    call of each entry point (K7a at sc = 1 and 4, K7d on each of its
+    cases) with the launch counters set to 0 just before (`reset`) and read
+    by `counted` just after: every K7 kernel launched, no other kernel. Then each kernel
+    against its plain version on the same inputs, bit-equal, both timed
+    with CUDA events, beside its bound:
+      - K7b (xor_hintgen_pallas) on the engine's DB with K1's table and
+        the skip mask, the input compare_k2 gives K2;
+      - K7a (xor_hintgen_mm_s8p) on to_plane_major_s8 of that DB, same
+        table and mask (timed: the kernel on the folded offsets);
+      - K7c (xor_scan_pallas) on a random flat DB of the single-server
+        layout (FLAT_*), offsets uniform in [0, C), skip at 25 %;
+      - K7d (refresh_parity) on refresh_cases at P = 16, Hp = 3,584,
+        Ep = 256; the caller's ppar unchanged.
+    Returns (results, launches)."""
+    import torch
+
+    from pacmann_tpu_torch.ops import attic
+
+    S, P, CK, _ = db4.shape
+    k = 2
+    C = CK // k
+    skip = skip.contiguous()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    dbp = attic.to_plane_major_s8(db4, k)
+    torch.cuda.synchronize()
+    print(f"to_plane_major_s8: {dbp.numel() / 1e9:.3f} GB of byte planes in "
+          f"{time.perf_counter() - t0:.3f} s")
+    flat = torch.empty((FLAT_S, FLAT_C * k, 128), dtype=torch.int32,
+                       device="cuda").random_(-2**31, 2**31, generator=gen)
+    f_off = torch.randint(0, FLAT_C, (FLAT_B, FLAT_S), generator=gen,
+                          dtype=torch.int32, device="cuda")
+    f_skip = torch.rand((FLAT_B, FLAT_S), generator=gen, device="cuda") < 0.25
+    cases = refresh_cases(gen, P, 3584, k * 128)
+    ppar = cases["Q=6"][0]
+    ppar_before = ppar.clone()
+
+    # the counted run, through the entry points
+    reset()
+    outs = {"K7b": attic.xor_hintgen_pallas(db4, table, skip, k)}
+    for sc in (1, 4):
+        outs[f"K7a sc={sc}"] = attic.xor_hintgen_mm_s8p(dbp, table, skip, k,
+                                                        sc=sc)
+    outs["K7c"] = attic.xor_scan_pallas(flat, f_off, f_skip, k)
+    for name, case in cases.items():
+        outs[f"K7d {name}"] = attic.refresh_parity(*case)
+    launches = counted("attic", ATTIC)
+    check(torch.equal(ppar, ppar_before), "refresh_parity wrote its input")
+
+    res = {}
+
+    def report(label, what, got, want, ms, plain_ms, b, note=""):
+        err = max(max_abs_err(g, want) for g in got)
+        check(err == 0, f"{label} {what} differs from its plain version "
+              f"(max err {err})")
+        print(f"{label} {what}: bit-equal to plain; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}){note}")
+        res[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+
+    # K7b
+    want = attic.xor_hintgen_pallas_plain(db4, table, skip, k)
+    b, rows = gather_bound(table, skip, C, k)
+    report("K7b", f"xor_hintgen_pallas {tuple(table.shape)}", [outs["K7b"]],
+           want, cuda_ms(lambda: attic.xor_hintgen_pallas_cuda(
+               db4, table, skip, k), reps=5),
+           cuda_ms(lambda: attic.xor_hintgen_pallas_plain(
+               db4, table, skip, k), reps=2), b, f"; {rows} distinct entries")
+    # K7a: the same function on the byte planes
+    off = torch.where(skip, C, table).contiguous()
+    want = want.reshape(P, -1, k * 128)
+    check(torch.equal(attic.xor_hintgen_mm_s8p_plain(dbp, off), want),
+          "K7a's plain version differs from K7b's")
+    b, _ = gather_bound(off, None, C, k)
+    report("K7a", f"xor_hintgen_mm_s8p {tuple(table.shape)} sc=1,4",
+           [outs["K7a sc=1"], outs["K7a sc=4"]], want,
+           cuda_ms(lambda: attic.xor_hintgen_mm_s8p_cuda(dbp, off), reps=5),
+           cuda_ms(lambda: attic.xor_hintgen_mm_s8p_plain(dbp, off), reps=1),
+           b)
+    del dbp, off, want
+    # K7c
+    want = attic.xor_scan_pallas_plain(flat, f_off, f_skip, k)
+    b, rows = gather_bound(f_off[None], f_skip[None], FLAT_C, k)
+    report("K7c", f"xor_scan_pallas ({FLAT_B}, {FLAT_S}) C={FLAT_C}",
+           [outs["K7c"]], want,
+           cuda_ms(lambda: attic.xor_scan_pallas_cuda(flat, f_off, f_skip, k),
+                   reps=5),
+           cuda_ms(lambda: attic.xor_scan_pallas_plain(flat, f_off, f_skip,
+                                                       k), reps=1),
+           b, f"; {rows} distinct entries")
+    del flat, f_off, f_skip, want
+    # K7d
+    for name, case in cases.items():
+        report(f"K7d {name}", "refresh_parity", [outs[f"K7d {name}"]],
+               attic.refresh_parity_plain(*case),
+               cuda_ms(lambda: attic.refresh_parity_cuda(*case), reps=50),
+               cuda_ms(lambda: attic.refresh_parity_plain(*case), reps=5),
+               refresh_bound(*case))
+    del outs, cases
+    torch.cuda.empty_cache()
+    return res, launches
 
 
 def protocol_inputs(gen, kind: str, Q: int, table, p, P: int,
@@ -461,7 +667,9 @@ def compare_protocol(table, p, P: int, psize: int, quotas,
                          f"{k4_b['bound_ms']:.4f} ({k4_b['bound_by']})")
             else:
                 times = ""
-            print(f"K3 select_full + K4 claim_select Q={Q} {kind}: bit-equal "
+            print(f"K3 select_full + K4 claim_select (P, S, Hp) = ({P}, "
+                  f"{p.set_size}, {p.primary_hint_num}) Q={Q} {kind}: "
+                  "bit-equal "
                   f"to plain ({row['real']} real rounds, {found} found, "
                   f"{served} served){times}")
             res[f"Q={Q} {kind}"] = row
@@ -701,26 +909,28 @@ def pir_select_times(engine, quotas, seed: int, reps: int = 20) -> dict:
     return out
 
 
-def engine_phase(engine, raw: np.ndarray, seed: int) -> dict:
-    """Preprocessing (1 warm + 3 timed) and ten timed 96-id batches."""
+def engine_phase(engine, raw: np.ndarray, seed: int, preps: int = 3,
+                 batches: int = 10) -> dict:
+    """Preprocessing (1 warm + `preps` timed) and `batches` timed 96-id
+    batches after one warm batch."""
     engine.preprocessing(rng=np.random.default_rng(seed + 1))
-    preps = []
-    for i in range(3):
+    prep_s = []
+    for i in range(preps):
         t0 = time.perf_counter()
         engine.preprocessing(rng=np.random.default_rng(seed + 2 + i))
-        preps.append(time.perf_counter() - t0)
+        prep_s.append(time.perf_counter() - t0)
     rng = np.random.default_rng(seed + 3)
     n = raw.shape[0]
     engine.query([int(i) for i in rng.integers(0, n, 96)])     # warm
-    batches, lat = [], []
-    for _ in range(10):
+    done, lat = [], []
+    for _ in range(batches):
         ids = [int(i) for i in rng.integers(0, n, 96)]
         t0 = time.perf_counter()
         out = engine.query(ids)
         lat.append(time.perf_counter() - t0)
-        batches.append((ids, out))
+        done.append((ids, out))
     exact = total = 0
-    for ids, out in batches:
+    for ids, out in done:
         want = raw[ids]
         for r in range(len(ids)):
             total += 1
@@ -729,13 +939,14 @@ def engine_phase(engine, raw: np.ndarray, seed: int) -> dict:
             else:
                 check(not out[r].any(), f"row {ids[r]} answered wrongly")
     rate = exact / total
-    print(f"engine prep s: {', '.join(f'{t:.4f}' for t in preps)} "
-          f"(min {min(preps):.4f})")
+    print(f"engine prep s: {', '.join(f'{t:.4f}' for t in prep_s)} "
+          f"(min {min(prep_s):.4f})")
     print(f"engine query batch96 ms: median {np.median(lat) * 1e3:.3f}, "
-          f"min {min(lat) * 1e3:.3f}, max {max(lat) * 1e3:.3f} (10 batches); "
+          f"min {min(lat) * 1e3:.3f}, max {max(lat) * 1e3:.3f} ({batches} "
+          f"batches); "
           f"exact rows {exact}/{total} = {rate:.4f}; every other row zero")
     check(rate >= 0.98, f"batch-96 success {rate:.4f} < 0.98")
-    return dict(prep_s=preps, batch96_ms=[t * 1e3 for t in lat],
+    return dict(prep_s=prep_s, batch96_ms=[t * 1e3 for t in lat],
                 batch96_success=rate)
 
 
@@ -1047,8 +1258,10 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     try:
-        from pacmann_tpu_torch.ops import aes, distance, xor_scan
+        from pacmann_tpu_torch.ops import aes, attic, distance, xor_scan
         from pacmann_tpu_torch.ops import protocol_kernels as pk
+        from pacmann_tpu_torch.pir.params import (
+            derive_batch_params, derive_piano_params)
         from pacmann_tpu_torch.pir.device_engine import (
             DevicePianoEngine, _build_skip)
         from pacmann_tpu_torch.private.fused_search import FusedPrivateSearch
@@ -1066,19 +1279,55 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     # 2. build, one nvcc per source, all started together
-    names = ("aes_mmo", "xor_gather", "protocol", "l2_distance")
+    names = ("aes_mmo", "xor_gather", "protocol", "l2_distance",
+             "refresh_parity")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(cuda_lib.load, names))
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(names)} "
           "sources in parallel")
+    ptxas_notes = {}
     for name in names:
         note = cuda_lib.BUILD / f"{name}.ptxas.txt"
-        ptxas = [ln.strip() for ln in note.read_text().splitlines()
-                 if "registers" in ln] if note.exists() else []
+        ptxas_notes[name] = note.read_text() if note.exists() else ""
+        lines = [ln.strip() for ln in ptxas_notes[name].splitlines()]
+        spills = [ln for ln in lines if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         print(f"build {name}: nvcc "
               f"{cuda_lib.build_seconds.get(name, 0.0):.2f} s "
-              + " | ".join(ptxas))
+              + " | ".join(ln for ln in lines if "registers" in ln)
+              + (f"; spills: {' | '.join(spills)}" if spills else
+                 "; no spills"))
+
+    # the launch counters of every kernel; each counted run sets them to 0
+    # just before and reads them just after
+    counters = {"aes_mmo_tables": aes.aes_mmo_cuda,
+                "xor_gather": xor_scan.xor_gather_cuda,
+                "claim_select": pk.claim_select_cuda,
+                "select_full": pk.select_full_cuda,
+                "aes_mmo_points": aes.aes_mmo_points_cuda,
+                "l2_distance": distance.l2_distance_cuda,
+                "xor_hintgen_mm_s8p": attic.xor_hintgen_mm_s8p_cuda,
+                "xor_hintgen_pallas": attic.xor_hintgen_pallas_cuda,
+                "xor_scan_pallas": attic.xor_scan_pallas_cuda,
+                "refresh_parity": attic.refresh_parity_cuda}
+    check(tuple(counters) == KERNELS, "a kernel has no launch counter")
+
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts(path: str, own: tuple) -> dict:
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counters.items()}
+        print(f"path {path} launches: {got}")
+        for name, count in got.items():
+            if name in own:
+                check(count > 0, f"kernel {name} was not launched on path "
+                      f"{path}")
+            else:
+                check(count == 0, f"path {path} launched {name}")
+        return got
 
     # the engine's DB (packing runs no kernel)
     raw = synth_raw(N, ENTRY_BYTES // 4, args.seed, DIM, M)
@@ -1104,6 +1353,23 @@ def main() -> int:
     k2 = compare_k2(engine.db, table, skip, (6, 96), args.seed + 11)
     k34 = compare_protocol(table, p, P, c.partition_size, (6, 96),
                            args.seed + 13)
+    # the repair pins: K2 at k = 5 and 8; K3/K4 at Hp = 14,336 (n = 7M)
+    k2_wide = compare_k2_wide(table, skip, p.chunk_size, args.seed + 19)
+    c7 = derive_batch_params(PROTOCOL_PIN_N, ENTRY_BYTES, BATCH, FAIL)
+    p7 = derive_piano_params(c7.partition_size, ENTRY_BYTES, FAIL)
+    table7 = aes.aes_mmo_cuda(
+        k1_rk, p7.primary_hint_num + p7.set_size * p7.max_query_per_chunk,
+        p7.set_size, p7.chunk_mask)
+    print(f"K3/K4 pin: n={PROTOCOL_PIN_N}, shared memory "
+          f"{pk.smem_bytes(p7.primary_hint_num, p7.set_size)} B a CTA "
+          f"(opt-in limit {pk.smem_limit(torch.cuda.current_device())} B)")
+    k34_wide = compare_protocol(table7, p7, c7.partition_num,
+                                c7.partition_size, (6, 96), args.seed + 21)
+    del table7
+    torch.cuda.empty_cache()
+    # the attic at the main deployment's shapes, its entry points counted
+    k7, attic_launches = attic_phase(engine.db, table, skip, args.seed + 22,
+                                     reset_counts, read_counts)
     del table, skip, k1_rk
     torch.cuda.empty_cache()
     k6 = compare_k6(args.seed + 17)
@@ -1120,12 +1386,6 @@ def main() -> int:
 
     # 4. the main path once per route with the table, then table-free on
     # "xla" and "pallas", launch counters from zero for each path
-    counters = {"aes_mmo_tables": aes.aes_mmo_cuda,
-                "xor_gather": xor_scan.xor_gather_cuda,
-                "claim_select": pk.claim_select_cuda,
-                "select_full": pk.select_full_cuda,
-                "aes_mmo_points": aes.aes_mmo_points_cuda,
-                "l2_distance": distance.l2_distance_cuda}
 
     def expected(route: str, table_free: bool) -> tuple:
         """The kernels a path must launch; it launches no other."""
@@ -1138,22 +1398,10 @@ def main() -> int:
             own += ("select_full",)
         return own
 
-    def read_counts(path: str, own: tuple) -> dict:
-        torch.cuda.synchronize()
-        got = {k: fn.launches for k, fn in counters.items()}
-        print(f"path {path} launches: {got}")
-        for name, count in got.items():
-            if name in own:
-                check(count > 0, f"kernel {name} was not launched on path "
-                      f"{path}")
-            else:
-                check(count == 0, f"path {path} launched {name}")
-        return got
-
     sids = np.random.default_rng(args.seed + 30).choice(N, 1000,
                                                         replace=False)
     srows = raw[sids]
-    paths, launches = {}, {}
+    paths, launches = {}, {"attic": attic_launches}
     torch.cuda.reset_peak_memory_stats()
     for route, tf in [(r, False) for r in ROUTES] + [
             (r, True) for r in TABLE_FREE_ROUTES]:
@@ -1162,8 +1410,7 @@ def main() -> int:
         e = DevicePianoEngine(N, ENTRY_BYTES, BATCH, None, FAIL,
                               packed_db=engine.db, kernel_route=route,
                               table_free=tf)
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counts()
         res = dict(engine=engine_phase(e, raw, args.seed + 20))
         if route != "pallas" or tf:
             fs = FusedPrivateSearch(
@@ -1181,31 +1428,63 @@ def main() -> int:
         del e
     path = "pallas table-free measure_comm"
     print(f"-- path {path}")
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     paths[path] = measure_comm_phase(engine.db, args.seed + 60)
     launches[path] = read_counts(path, expected("pallas", True))
+    # the repair pins on the engine: 3,968 B entries (k = 8) on "xla", and
+    # n = 5M (Hp = 14,336: K3/K4 above 48 KiB) on "pallas" and "fused";
+    # each DB freed before the next
+    for label, n, entry_bytes, routes in (
+            ("3968 B", N, WIDE_ENTRY_BYTES, ("xla",)),
+            ("5M", BIG_N, ENTRY_BYTES, ("pallas", "fused"))):
+        u32 = entry_bytes // 4
+        big_raw = synth_raw(n, u32, args.seed + 80, u32 - M, M)
+        big_db = None
+        for route in routes:
+            path = f"{label} {route}"
+            print(f"-- path {path}")
+            t0 = time.perf_counter()
+            e = DevicePianoEngine(n, entry_bytes, BATCH,
+                                  big_raw if big_db is None else None, FAIL,
+                                  device="cuda", packed_db=big_db,
+                                  kernel_route=route)
+            big_db = e.db
+            torch.cuda.synchronize()
+            ep = e.params
+            print(f"DB upload+pack {time.perf_counter() - t0:.3f} s: n={n}, "
+                  f"{entry_bytes} B entries, k={e.k}, C={ep.chunk_size}, "
+                  f"S={ep.set_size}, Hp={ep.primary_hint_num}, "
+                  f"db {big_db.numel() * 4 / 1e9:.3f} GB")
+            reset_counts()
+            paths[path] = dict(engine=engine_phase(e, big_raw, args.seed + 81,
+                                                   preps=1, batches=3))
+            launches[path] = read_counts(path, expected(route, False))
+            del e
+        del big_raw, big_db
+        torch.cuda.empty_cache()
     # the plaintext paths: K6 and no PIR kernel
     for i, (path, run) in enumerate((("exact search", exact_search_phase),
                                      ("plaintext", plaintext_phase),
                                      ("knn graph", knn_graph_phase))):
         print(f"-- path {path}")
         torch.cuda.empty_cache()
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counts()
         paths[path] = run(args.seed + 70 + i)
         launches[path] = read_counts(path, ("l2_distance",))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"peak device memory over the paths {peak_gb:.3f} GB")
 
-    details = dict(card=card, k1=k1, k2=k2, k3_k4=k34, k5=k5, k6=k6,
-                   paths=paths,
+    details = dict(card=card, k1=k1, k2=k2, k2_wide=k2_wide, k3_k4=k34,
+                   k3_k4_hp14336=k34_wide, k5=k5, k6=k6, k7=k7, paths=paths,
+                   ptxas=ptxas_notes,
                    launches=launches, pir_select_ms=select_ms,
                    resident_state=resident, peak_device_gb=peak_gb,
                    seconds=time.perf_counter() - t_start)
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
+    print(f"chip_smoke: {details['seconds']:.1f} s from start to the "
+          "result lines")
     total = {k: sum(n[k] for n in launches.values()) for k in KERNELS}
     k34_q96 = k34["Q=96 uniform"]
 
@@ -1224,16 +1503,17 @@ def main() -> int:
               k1),
         entry("xor_gather", "xor_gather.cu",
               "pacmann_tpu/ops/xor_scan.py:346",
-              max(v["max_abs_err"] for v in k2.values()), k2["prep"],
-              k2["prep"]),
+              max(v["max_abs_err"] for v in (
+                  *k2.values(), *k2_wide["k=5"].values(),
+                  *k2_wide["k=8"].values())), k2["prep"], k2["prep"]),
         entry("claim_select", "protocol.cu",
               "pacmann_tpu/ops/protocol_kernels.py:119",
-              max(v["k4_err"] for v in k34.values()),
+              max(v["k4_err"] for v in (*k34.values(), *k34_wide.values())),
               dict(ms=k34_q96["k4_ms"], plain_ms=k34_q96["k4_plain_ms"]),
               k34_q96["k4_bound"]),
         entry("select_full", "protocol.cu",
               "pacmann_tpu/ops/protocol_kernels.py:287",
-              max(v["k3_err"] for v in k34.values()),
+              max(v["k3_err"] for v in (*k34.values(), *k34_wide.values())),
               dict(ms=k34_q96["k3_ms"], plain_ms=k34_q96["k3_plain_ms"]),
               k34_q96["k3_bound"]),
         entry("aes_mmo_points", "aes_mmo.cu",
@@ -1242,6 +1522,20 @@ def main() -> int:
               k5["Q=96"]),
         entry("l2_distance", "l2_distance.cu",
               "pacmann_tpu/ops/distance.py:91", k6["max_abs_err"], k6, k6),
+        entry("xor_hintgen_mm_s8p", "xor_gather.cu",
+              "pacmann_tpu/ops/attic.py:106", k7["K7a"]["max_abs_err"],
+              k7["K7a"], k7["K7a"]),
+        entry("xor_hintgen_pallas", "xor_gather.cu",
+              "pacmann_tpu/ops/attic.py:187", k7["K7b"]["max_abs_err"],
+              k7["K7b"], k7["K7b"]),
+        entry("xor_scan_pallas", "xor_gather.cu",
+              "pacmann_tpu/ops/attic.py:266", k7["K7c"]["max_abs_err"],
+              k7["K7c"], k7["K7c"]),
+        entry("refresh_parity", "refresh_parity.cu",
+              "pacmann_tpu/ops/attic.py:355",
+              max(v["max_abs_err"] for key, v in k7.items()
+                  if key.startswith("K7d")), k7["K7d Q=96"],
+              k7["K7d Q=96"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,7 +32,11 @@
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSmemLimit = 48 * 1024;   // no opt-in beyond the default
+// dynamic shared memory a CTA gets without opting in; above it each kernel
+// instantiation is opted in, up to the device's limit
+// cudaDevAttrMaxSharedMemoryPerBlockOptin (232,448 B on an H100): the plan
+// reaches 72 KB at Hp = 14,336 (640 B entries, n of about 4.3M to 7M)
+constexpr size_t kDefaultSmem = 48 * 1024;
 
 struct Args {
   // both kernels
@@ -193,26 +197,55 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const Args a) {
   }
 }
 
+// The most dynamic shared memory one CTA may opt in to on `device`.
+static int smem_optin(int device, int* bytes) {
+  return static_cast<int>(cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+}
+
+template <bool kFull>
+static int launch_one(const Args& a, size_t smem, cudaStream_t st) {
+  if (smem > kDefaultSmem) {
+    // set before this instantiation's launch, or the launch is refused
+    const cudaError_t err = cudaFuncSetAttribute(
+        select_kernel<kFull>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  select_kernel<kFull><<<a.P, kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 static int launch(const Args& a, bool full, void* stream) {
-  const size_t smem = smem_bytes(a.Hp, a.S);
-  if (smem > static_cast<size_t>(kSmemLimit) || a.Hp <= 0 || a.S <= 0 ||
-      a.C <= 0) {
+  if (a.Hp <= 0 || a.S <= 0 || a.C <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = smem_bytes(a.Hp, a.S);
+  if (smem > kDefaultSmem) {
+    int device = 0, limit = 0;
+    int err = static_cast<int>(cudaGetDevice(&device));
+    if (err == 0) err = smem_optin(device, &limit);
+    if (err != 0) return err;
+    if (smem > static_cast<size_t>(limit)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (a.P <= 0 || a.Q <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (full) {
-    select_kernel<true><<<a.P, kThreads, smem, st>>>(a);
-  } else {
-    select_kernel<false><<<a.P, kThreads, smem, st>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return full ? launch_one<true>(a, smem, st) : launch_one<false>(a, smem, st);
+}
+
+// The shared-memory limit K3 and K4 launch under on `device`, in bytes,
+// into *bytes. Returns the cudaError_t of the query.
+extern "C" int protocol_smem_limit(int device, int* bytes) {
+  return smem_optin(device, bytes);
 }
 
 // K4. slot_col (P, S, Hp), prog (P, Hp), chunk_q/off_q (Q, P) int32,
 // real_q (Q, P) bool -> hit (Q, P) int32, found (Q, P) bool. All device
 // buffers, contiguous. Returns the launch's cudaError_t (0 on success);
-// shapes beyond the shared-memory plan are refused (cudaErrorInvalidValue).
+// shapes whose plan exceeds the device's opt-in shared memory are refused
+// (cudaErrorInvalidValue).
 extern "C" int claim_select(const void* slot_col, const void* prog,
                             const void* chunk_q, const void* off_q,
                             const void* real_q, void* hit, void* found, int P,

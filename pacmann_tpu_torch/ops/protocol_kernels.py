@@ -28,6 +28,7 @@ compared is below 2^31, so they equal the JAX package's u16/u32 values.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,7 +38,6 @@ from pacmann_tpu_torch.utils.u32 import first_true
 # csrc/protocol.cu: threads per CTA and its shared-memory plan (programmed
 # chunk per slot, found rounds per chunk, one word per warp, claimed bytes)
 _THREADS = 512
-_SMEM_LIMIT = 48 * 1024
 
 
 def smem_bytes(Hp: int, S: int) -> int:
@@ -140,18 +140,25 @@ def select_full_plain(slot_col, prog, tag, table, repl_idx, hist, finished,
     return (hit, ok_q, ok_r, ig, chunk_q, idxu_q), qs
 
 
-def _check_smem(Hp: int, S: int, what: str):
+@functools.cache
+def smem_limit(device_index: int) -> int:
+    """The shared memory one CTA of K3/K4 may use on CUDA device
+    `device_index`: its opt-in limit (cudaDevAttrMaxSharedMemoryPerBlockOptin,
+    232,448 B on an H100), as csrc/protocol.cu reads it."""
+    fn = cuda_lib.function("protocol", "protocol_smem_limit",
+                           [ctypes.c_int, ctypes.c_void_p])
+    out = ctypes.c_int(0)
+    cuda_lib.check(fn(device_index, ctypes.addressof(out)),
+                   "protocol_smem_limit")
+    return out.value
+
+
+def _check_smem(Hp: int, S: int, what: str, limit: int):
     need = smem_bytes(Hp, S)
-    if need > _SMEM_LIMIT:
+    if need > limit:
         raise ValueError(
             f"{what}: one partition needs {need} B of shared memory (Hp={Hp}, "
-            f"S={S}); the kernel takes at most {_SMEM_LIMIT} B")
-
-
-def _require_shape(t: torch.Tensor, name: str, shape: tuple, device):
-    if tuple(t.shape) != shape or t.device != device:
-        raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, "
-                         f"expected {shape} on {device}")
+            f"S={S}); the card lets a kernel take at most {limit} B")
 
 
 def claim_select_cuda(slot_col, prog, chunk_q, off_q, real_q, *, C: int,
@@ -165,11 +172,11 @@ def claim_select_cuda(slot_col, prog, chunk_q, off_q, real_q, *, C: int,
     P, S, Hp = slot_col.shape
     Q = chunk_q.shape[0]
     dev = slot_col.device
-    _require_shape(prog, "prog", (P, Hp), dev)
+    cuda_lib.require_shape(prog, "prog", (P, Hp), dev)
     for t, name in ((chunk_q, "chunk_q"), (off_q, "off_q"),
                     (real_q, "real_q")):
-        _require_shape(t, name, (Q, P), dev)
-    _check_smem(Hp, S, "claim_select")
+        cuda_lib.require_shape(t, name, (Q, P), dev)
+    _check_smem(Hp, S, "claim_select", smem_limit(dev.index))
     hit = torch.empty((Q, P), dtype=torch.int32, device=dev)
     found = torch.empty((Q, P), dtype=torch.bool, device=dev)
     if Q == 0 or P == 0:
@@ -205,8 +212,8 @@ def select_full_cuda(slot_col, prog, tag, table, repl_idx, hist, finished,
     for (t, name), shape in zip(named, (
             (P, S, Hp), (P, Hp), (P, Hp), (P, T, S), (P, S, R), (P, S),
             (P,), (Q, P), (Q, P, S))):
-        _require_shape(t, name, shape, dev)
-    _check_smem(Hp, S, "select_full")
+        cuda_lib.require_shape(t, name, shape, dev)
+    _check_smem(Hp, S, "select_full", smem_limit(dev.index))
     qs = torch.empty((Q, P, S), dtype=torch.int32, device=dev)
     hit, ig, chunk, idxu = (torch.empty((Q, P), dtype=torch.int32,
                                         device=dev) for _ in range(4))

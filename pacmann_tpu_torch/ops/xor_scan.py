@@ -12,7 +12,8 @@ JAX package's padded (S, P, C*k, 128) layout (pir/layout.py):
 An offset outside [0, C) is a skip. Two versions of that function:
   - xor_gather_plain: a loop over s of torch gathers (torch has no XOR
     reduction);
-  - xor_gather_cuda: kernel K2 (csrc/xor_gather.cu), one warp per row.
+  - xor_gather_cuda: kernel K2 (csrc/xor_gather.cu), one warp per row of
+    the output and group of at most 4 of its 128-word rows; any k >= 1.
 xor_gather routes a CPU tensor to the plain version and a CUDA tensor to
 the kernel; there is no fallback between them.
 """
@@ -54,9 +55,9 @@ def xor_gather_cuda(db4: torch.Tensor, offsets: torch.Tensor,
     cuda_lib.require_cuda_tensor(db4, "db4", torch.int32)
     cuda_lib.require_cuda_tensor(offsets, "offsets", torch.int32)
     S, P, CK, L = db4.shape
-    if L != 128 or CK % k or not 1 <= k <= 4:
+    if L != 128 or k < 1 or CK % k:
         raise ValueError(f"db4 {tuple(db4.shape)} with k={k} is not a "
-                         "(S, P, C*k, 128) layout with 1 <= k <= 4")
+                         "(S, P, C*k, 128) layout with k >= 1")
     if offsets.device != db4.device or offsets.dim() != 3 \
             or offsets.shape[0] != P or offsets.shape[2] != S:
         raise ValueError(f"offsets {tuple(offsets.shape)} do not match "

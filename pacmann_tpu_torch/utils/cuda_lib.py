@@ -108,3 +108,10 @@ def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype):
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_shape(t: torch.Tensor, name: str, shape: tuple,
+                  device: torch.device):
+    if tuple(t.shape) != shape or t.device != device:
+        raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, "
+                         f"expected {shape} on {device}")

@@ -81,6 +81,25 @@ def test_query_batches_identical(retries):
         assert np.array_equal(got.cache[idx], raw[idx]), r
 
 
+def test_wide_entries_identical():
+    """3,968 B entries (k = 8 rows of 128 words: a 960-dimensional vector
+    and 32 neighbour ids): state after prep and the answers of two batches
+    equal the JAX engine's, and the answers are the raw rows."""
+    raw, ref, got = _pair(n=2048, entry_bytes=3968, seed=14, prep_seed=15)
+    assert got.k == 8
+    _assert_same_state(ref, got)
+    rng = np.random.default_rng(16)
+    for _ in range(2):
+        ids = [int(i) for i in rng.integers(0, 2048, 32)]
+        out = got.query(ids)
+        assert np.array_equal(out, ref.query(ids))
+        _assert_same_state(ref, got)
+        hits = [r for r in range(32) if out[r].any()]
+        assert len(hits) >= 30
+        for r in hits:
+            assert np.array_equal(out[r], raw[ids[r]])
+
+
 def test_budget_exhaustion_reprep_identical():
     """Random batches until the window is spent: both engines re-prep on
     the same batch and keep identical state through it."""

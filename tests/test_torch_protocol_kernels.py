@@ -309,7 +309,13 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
 
 def test_shared_memory_plan_is_refused_beyond_the_limit():
     """The kernels keep one partition's claimed set and programmed chunks
-    in shared memory; a shape beyond it raises before any launch."""
-    assert tpk.smem_bytes(3584, 124) <= tpk._SMEM_LIMIT      # SIFT1M shape
-    with pytest.raises(ValueError):
-        tpk._check_smem(10_000, 124, "select_full")
+    in shared memory, opted in up to the card's limit (232,448 B on an
+    H100): the SIFT1M shape and Hp = 14,336 at S = 216 (640 B entries at
+    n = 7M, 72,608 B) fit; a plan beyond the limit raises before any
+    launch, naming Hp, S and the bytes."""
+    h100 = 232_448
+    for Hp, S in ((3584, 124), (14_336, 216)):
+        tpk._check_smem(Hp, S, "claim_select", h100)
+    assert tpk.smem_bytes(14_336, 216) == 72_608 > 48 * 1024
+    with pytest.raises(ValueError, match=r"235560 B .*Hp=47000, S=124"):
+        tpk._check_smem(47_000, 124, "select_full", h100)

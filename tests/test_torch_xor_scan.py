@@ -40,6 +40,25 @@ def test_hintgen_matches_mm_kernel_and_scan(S, P, C, k, T):
     assert np.array_equal(got, parts)
 
 
+@pytest.mark.parametrize("k", [5, 8])
+def test_gather_plain_takes_entries_over_four_rows(k):
+    """Entries over 2 KiB (k > 4 rows; k = 8 is a 960-dimensional vector
+    with 32 neighbours, 3,968 B): the plain version equals the JAX
+    package's xor_scan_parts, and xor_gather_cuda no longer refuses them
+    for their k (it refuses only the CPU tensor)."""
+    rng = np.random.default_rng(k)
+    S, P, C, B = 3, 2, 8, 7
+    db4 = _db(rng, S, P, C, k)
+    off = rng.integers(0, C, size=(P, B, S), dtype=np.uint32)
+    skip = rng.random((P, B, S)) < 0.25
+    got = xor_scan.xor_hintgen(from_u32(db4), from_u32(off),
+                               torch.from_numpy(skip), k)
+    want = np.asarray(xor_scan_parts(db4, off, skip, k)).reshape(P, B, -1)
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        xor_scan.xor_gather_cuda(from_u32(db4), from_u32(off), k)
+
+
 def test_server_scan_matches_gather_multi():
     rng = np.random.default_rng(9)
     S, P, C, k, Q = 4, 3, 8, 2, 5
@@ -82,6 +101,7 @@ def test_port_imports_no_jax():
     of the package and finds no jax in sys.modules."""
     code = ("import sys, pacmann_tpu_torch.private.fused_search, "
             "pacmann_tpu_torch.pir.convert, pacmann_tpu_torch.ops.aes, "
-            "pacmann_tpu_torch.ops.protocol_kernels; "
+            "pacmann_tpu_torch.ops.protocol_kernels, "
+            "pacmann_tpu_torch.ops.attic; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], check=True)
