@@ -12,16 +12,22 @@ queries). Phases, in order:
   2. build kernels K1 and K5 (csrc/aes_mmo.cu), K2 and the attic's K7a-
      K7c (csrc/xor_gather.cu), K3/K4 (csrc/protocol.cu), K6
      (csrc/l2_distance.cu) and the attic's K7d (csrc/refresh_parity.cu),
-     one nvcc each, all started together;
+     one nvcc each, all started together; fail if ptxas reports a spill
+     in xor_gather or l2_distance;
   3. each kernel against its plain torch version on the card at the main
      path's shapes, bit-equal, both timed with CUDA events, beside its
      bound (the least time the card could take for the same work): K1
      also spot-checked against the numpy AES oracle; K5 (the table-free
      PRF) at Q = 6 and 96 and against K1's table at the same points; K3
      (select_full) and K4 (claim_select) at Q = 6 and 96 on uniform,
-     contended and budget-edge rounds; K6 (l2_distance) at 1,000 x 1M x
-     128 and at the blocks the plaintext paths launch, bit-equal on
-     integer data and within 1e-5 (|q|^2 + |p|^2) on floats (its plain
+     contended and budget-edge rounds; K2 (xor_gather) in both its forms
+     (chunk-major and row-split) at the prep, Q = 6 and Q = 96 shapes,
+     at B = 16C - 1 and 16C (the two sides of gather_form's switch), at
+     a ragged shape (S = 13, k = 3, B = 5,000, all-skip rows) and, row
+     form only, at the 5M pin's prep (C = 2,048); K6 (l2_distance) at
+     1,000 x 1M x 128, at the blocks the plaintext paths launch, at
+     (1,000, 4,099) x D = 37 and on rows off 16-byte alignment, bit-equal
+     on integer data and within 1e-5 (|q|^2 + |p|^2) on floats (its plain
      version is the cuBLAS form). The repair pins: K2 at k = 5 and 8
      (entries over 2 KiB) at the prep and Q = 96 shapes, and K3/K4 at
      (P, S, Hp) = (16, 216, 14,336) (n = 7M: 72,608 B of shared memory a
@@ -339,43 +345,134 @@ def gather_bound(off, skip, C: int, k: int) -> tuple[dict, int]:
                  + P * B * k * 512, int_ops=int(live.sum()) * k * 128), rows
 
 
+def k2_forms(db, o, k: int, label: str, reps: int, plain_reps: int,
+             graph: bool = False) -> dict:
+    """Both K2 forms (chunk-major and row-split) against the plain version
+    at one input, bit-equal; both timed with CUDA events beside the bound.
+    `ms` is the time of the form gather_form picks, the one the paths
+    launch; `graph` adds its time replayed from a CUDA graph (the device's
+    time without the host's per-call gap)."""
+    import torch
+
+    from pacmann_tpu_torch.ops import xor_scan
+
+    S, P, CK, _ = db.shape
+    C, B = CK // k, o.shape[1]
+    form = xor_scan.gather_form(P, B, S, C, k)
+    warps = xor_scan.row_split_warps(P, B, S, k)
+    # the chunk-major ring holds C <= CHUNK_MAJOR_MAX_C rows (the 5M
+    # prep's C = 2,048 takes the row form alone)
+    forms = ("chunk", "row") if C <= xor_scan.CHUNK_MAJOR_MAX_C else ("row",)
+    b, rows = gather_bound(o, None, C, k)
+    want = xor_scan.xor_gather_plain(db, o, k)
+    err = 0
+    for f in forms:
+        got = xor_scan.xor_gather_cuda(db, o, k, form=f)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        check(e == 0, f"K2's {f} form differs from its plain version at "
+              f"{label} (max err {e})")
+        err = max(err, e)
+        del got
+    del want
+    times = {f: cuda_ms(lambda f=f: xor_scan.xor_gather_cuda(db, o, k,
+                                                             form=f), reps)
+             for f in forms}
+    plain_ms = cuda_ms(lambda: xor_scan.xor_gather_plain(db, o, k),
+                       plain_reps)
+    res = dict(max_abs_err=err, form=form, row_warps=warps, ms=times[form],
+               chunk_ms=times.get("chunk"), row_ms=times["row"],
+               plain_ms=plain_ms, **b)
+    note = ""
+    if graph:
+        res["graph_ms"] = graph_ms(
+            lambda: xor_scan.xor_gather_cuda(db, o, k), reps=50)
+        note = f" ({res['graph_ms']:.4f} ms replayed from a CUDA graph)"
+    gb = o.numel() * k * 512 / 1e9            # entries gathered (upper bound)
+    chunk = f"{times['chunk']:.4f}" if "chunk" in times else "(C too large)"
+    print(f"K2 xor_gather k={k} {label} offsets {tuple(o.shape)} C={C}: "
+          f"{' and '.join(forms)} form bit-equal to plain; {form} form "
+          f"{times[form]:.4f} ms{note} ({gb / times[form] * 1e3:.1f} GB/s of "
+          f"gathered entries), chunk {chunk} / row (W={warps}) "
+          f"{times['row']:.4f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}, {rows} distinct entries)")
+    return res
+
+
 def compare_k2(db, table, skip, quotas, seed: int, k: int = 2) -> dict:
     """K2 against its plain version at the prep shape and at the online
-    server-scan shapes (Q sub-queries per partition)."""
+    server-scan shapes (Q sub-queries per partition), both forms; at k = 2
+    also at both sides of the form switch (B = 16C - 1, 16C)."""
     import torch
 
     from pacmann_tpu_torch.ops import xor_scan
 
     S, P, CK, _ = db.shape
     C = CK // k
-    off = torch.where(skip, xor_scan.SKIP, table).contiguous()
-    shapes = {"prep": off}
+    shapes = {"prep": torch.where(skip, xor_scan.SKIP, table).contiguous()}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     for Q in quotas:
         shapes[f"Q={Q}"] = torch.randint(0, C, (P, Q, S), generator=gen,
                                          dtype=torch.int32, device="cuda")
+    if k == 2:
+        switch = xor_scan.CHUNK_MAJOR_MIN_REUSE * C
+        for B in (switch - 1, switch):
+            shapes[f"B={B}"] = torch.randint(0, C, (P, B, S), generator=gen,
+                                             dtype=torch.int32, device="cuda")
     res = {}
     for name, o in shapes.items():
-        b, rows = gather_bound(o, None, C, k)
-        got = xor_scan.xor_gather_cuda(db, o, k)
-        want = xor_scan.xor_gather_plain(db, o, k)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        check(err == 0, f"K2 differs from its plain version at {name}")
-        del got, want
-        reps = 5 if name == "prep" else 50
-        ms = cuda_ms(lambda: xor_scan.xor_gather_cuda(db, o, k), reps=reps)
-        plain_ms = cuda_ms(lambda: xor_scan.xor_gather_plain(db, o, k),
-                           reps=2 if name == "prep" else 10)
-        gb = o.numel() * k * 512 / 1e9        # entries gathered (upper bound)
-        print(f"K2 xor_gather k={k} {name} offsets {tuple(o.shape)}: "
-              f"bit-equal to "
-              f"plain; kernel {ms:.3f} ms ({gb / ms * 1e3:.1f} GB/s of "
-              f"gathered entries), plain {plain_ms:.3f} ms, bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {rows} distinct "
-              "entries)")
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
+        prep = name == "prep"
+        res[name] = k2_forms(db, o, k, name, reps=5 if prep else 50,
+                             plain_reps=2 if prep else 10,
+                             graph=name.startswith("Q="))
+    return res
+
+
+def compare_k2_ragged(seed: int) -> dict:
+    """K2's forms where they split unevenly: S = 13 (not a multiple of the
+    8-chunk run), B = 5,000 hints (not a multiple of a 2,048-hint block),
+    k = 3, a quarter of the offsets skips and four rows that skip every
+    chunk."""
+    import torch
+
+    S, P, C, k, B = 13, 16, 512, 3, 5000
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    db = torch.empty((S, P, C * k, 128), dtype=torch.int32,
+                     device="cuda").random_(-2**31, 2**31, generator=gen)
+    off = torch.randint(0, C, (P, B, S), generator=gen, dtype=torch.int32,
+                        device="cuda")
+    off[torch.rand((P, B, S), generator=gen, device="cuda") < 0.25] = -1
+    off[:, :4] = -1
+    return k2_forms(db, off, k, "ragged", reps=20, plain_reps=2)
+
+
+def compare_k2_5m(rk, seed: int) -> dict:
+    """K2 at the 5M pin engines' prep shape: n = 5M entries of 640 B
+    (P = 16, T = 35,552, S = 156, C = 2,048), K1's table of those
+    parameters with the engine's skip mask, on a random 5.23 GB DB."""
+    import torch
+
+    from pacmann_tpu_torch.ops import aes, xor_scan
+    from pacmann_tpu_torch.pir.device_engine import _build_skip
+    from pacmann_tpu_torch.pir.params import (derive_batch_params,
+                                              derive_piano_params)
+
+    c = derive_batch_params(BIG_N, ENTRY_BYTES, BATCH, FAIL)
+    p = derive_piano_params(c.partition_size, ENTRY_BYTES, FAIL)
+    S, Hp, R, C = (p.set_size, p.primary_hint_num, p.max_query_per_chunk,
+                   p.chunk_size)
+    T, P, k = Hp + S * R, c.partition_num, 2
+    off = torch.where(_build_skip(P, T, Hp, R, S, "cuda"), xor_scan.SKIP,
+                      aes.aes_mmo_cuda(rk, T, S, p.chunk_mask)).contiguous()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    db = torch.empty((S, P, C * k, 128), dtype=torch.int32,
+                     device="cuda").random_(-2**31, 2**31, generator=gen)
+    res = k2_forms(db, off, k, "5M prep", reps=3, plain_reps=1)
+    del db, off
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1013,7 +1110,9 @@ def compare_k6(seed: int) -> dict:
     """K6 against its plain version at the exact-search shape (1,000 x 1M x
     128) and at the shapes the plaintext paths launch: knn_search's
     (1,000, 65,536) block and (1,000, 16,960) tail and the kNN graph's
-    (1,024, 65,536) block. Bit-equal on integer-valued data (0-255: every
+    (1,024, 65,536) block; also a ragged (1,000, 4,099) x D = 37 and a
+    (999, 65,535) one whose rows are not 16-byte aligned (the kernel's
+    4-byte copies). Bit-equal on integer-valued data (0-255: every
     partial sum is exact), within 1e-5 (|q|^2 + |p|^2) elementwise on
     uniform [0, 1) floats. Timed on the floats in turns, kernel / plain /
     kernel; the plain version is itself the library (cuBLAS) form. Also
@@ -1034,12 +1133,19 @@ def compare_k6(seed: int) -> dict:
         else:
             q, p = (torch.rand((rows, DIM), generator=gen, device="cuda")
                     for rows in (1024, L2_N))
+        # the launch shapes, then a ragged one (D = 37: 4-byte copies) and
+        # one whose rows are not 16-byte aligned (a view one float in)
+        ragged = [x[:rows, :37].contiguous() for x, rows in ((q, L2_Q),
+                                                            (p, 4099))]
+        shifted = [x[:rows].reshape(-1)[1:1 + (rows - 1) * DIM].view(
+            rows - 1, DIM) for x, rows in ((q, L2_Q), (p, KNN_BLOCK))]
         for qs, ps in ((q[:L2_Q], p), (q[:L2_Q], p[:KNN_BLOCK]),
-                       (q[:L2_Q], p[L2_N - tail:]), (q, p[:KNN_BLOCK])):
+                       (q[:L2_Q], p[L2_N - tail:]), (q, p[:KNN_BLOCK]),
+                       ragged, shifted):
             got = distance.l2_distance_cuda(qs, ps)
             want = distance.l2_distance_plain(qs, ps)
             torch.cuda.synchronize()
-            shape = f"({qs.shape[0]}, {ps.shape[0]})"
+            shape = f"({qs.shape[0]}, {ps.shape[0]}) x D = {qs.shape[1]}"
             if kind == "integer":
                 check(torch.equal(got, want), f"K6 is not bit-equal to its "
                       f"plain version on integers at {shape}")
@@ -1054,6 +1160,7 @@ def compare_k6(seed: int) -> dict:
                       f"{float(diff.max())})")
                 del scale
             del got, diff
+        del ragged, shifted
     torch.cuda.empty_cache()
     q = q[:L2_Q].contiguous()
 
@@ -1072,8 +1179,9 @@ def compare_k6(seed: int) -> dict:
     ms = (turns[0] + turns[2]) / 2
     b = l2_bound(L2_Q, L2_N, DIM)
     tflops = 2 * L2_Q * L2_N * DIM / ms / 1e9
-    print(f"K6 l2_distance ({L2_Q},{DIM})x({L2_N},{DIM}) and the launch "
-          f"shapes (1000|1024, {KNN_BLOCK}|{tail}): bit-equal to plain on "
+    print(f"K6 l2_distance ({L2_Q},{DIM})x({L2_N},{DIM}), the launch "
+          f"shapes (1000|1024, {KNN_BLOCK}|{tail}), (1000, 4099) x D = 37 "
+          f"and rows off 16-byte alignment: bit-equal to plain on "
           f"integer data; max err {errs['float']:.3g} on floats (within "
           f"1e-5 (|q|^2+|p|^2)); kernel {turns[0]:.3f}/{turns[2]:.3f} ms "
           f"({tflops:.1f} TFLOP/s), plain (cuBLAS form) {turns[1]:.3f} ms, "
@@ -1298,6 +1406,9 @@ def main() -> int:
               + " | ".join(ln for ln in lines if "registers" in ln)
               + (f"; spills: {' | '.join(spills)}" if spills else
                  "; no spills"))
+        if name in ("xor_gather", "l2_distance"):
+            check(ptxas_notes[name] and not spills,
+                  f"ptxas reports spills (or no report) for {name}")
 
     # the launch counters of every kernel; each counted run sets them to 0
     # just before and reads them just after
@@ -1355,6 +1466,8 @@ def main() -> int:
                            args.seed + 13)
     # the repair pins: K2 at k = 5 and 8; K3/K4 at Hp = 14,336 (n = 7M)
     k2_wide = compare_k2_wide(table, skip, p.chunk_size, args.seed + 19)
+    k2_ragged = compare_k2_ragged(args.seed + 23)
+    k2_5m = compare_k2_5m(k1_rk, args.seed + 24)
     c7 = derive_batch_params(PROTOCOL_PIN_N, ENTRY_BYTES, BATCH, FAIL)
     p7 = derive_piano_params(c7.partition_size, ENTRY_BYTES, FAIL)
     table7 = aes.aes_mmo_cuda(
@@ -1474,7 +1587,8 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"peak device memory over the paths {peak_gb:.3f} GB")
 
-    details = dict(card=card, k1=k1, k2=k2, k2_wide=k2_wide, k3_k4=k34,
+    details = dict(card=card, k1=k1, k2=k2, k2_wide=k2_wide,
+                   k2_ragged=k2_ragged, k2_5m=k2_5m, k3_k4=k34,
                    k3_k4_hp14336=k34_wide, k5=k5, k6=k6, k7=k7, paths=paths,
                    ptxas=ptxas_notes,
                    launches=launches, pir_select_ms=select_ms,
@@ -1505,7 +1619,8 @@ def main() -> int:
               "pacmann_tpu/ops/xor_scan.py:346",
               max(v["max_abs_err"] for v in (
                   *k2.values(), *k2_wide["k=5"].values(),
-                  *k2_wide["k=8"].values())), k2["prep"], k2["prep"]),
+                  *k2_wide["k=8"].values(), k2_ragged, k2_5m)),
+              k2["prep"], k2["prep"]),
         entry("claim_select", "protocol.cu",
               "pacmann_tpu/ops/protocol_kernels.py:119",
               max(v["k4_err"] for v in (*k34.values(), *k34_wide.values())),

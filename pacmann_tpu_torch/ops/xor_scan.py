@@ -12,10 +12,15 @@ JAX package's padded (S, P, C*k, 128) layout (pir/layout.py):
 An offset outside [0, C) is a skip. Two versions of that function:
   - xor_gather_plain: a loop over s of torch gathers (torch has no XOR
     reduction);
-  - xor_gather_cuda: kernel K2 (csrc/xor_gather.cu), one warp per row of
-    the output and group of at most 4 of its 128-word rows; any k >= 1.
+  - xor_gather_cuda: kernel K2 (csrc/xor_gather.cu), any k >= 1, in one
+    of two forms that gather_form picks by shape: "chunk" (chunk-major:
+    a chunk's rows staged in shared memory, read by a block of up to 3,072
+    hints) where a partition's B rows name each chunk row 16 times or
+    more (hint generation at C <= 512), else "row" (row-split:
+    row_split_warps warps per output row and group of at most 4 of its
+    128-word rows, their partial sums XORed in shared memory).
 xor_gather routes a CPU tensor to the plain version and a CUDA tensor to
-the kernel; there is no fallback between them.
+the kernel; there is no fallback between them, nor between the forms.
 """
 
 from __future__ import annotations
@@ -27,6 +32,52 @@ import torch
 from pacmann_tpu_torch.utils import cuda_lib
 
 SKIP = -1   # the sentinel offset hint generation writes for a skipped chunk
+
+# The chunk-major form reads a chunk's whole slice once per block of hints,
+# the row form only the rows its offsets name. On the H100 the first is
+# the faster at hint generation (B = 24C) and at B = 16C, the second at
+# the server scan (B <= 96) and on a short scan (S = 13, B ~ 10C). Its
+# ring of 2 x (C + 1) rows of 64 B and the run tables must fit the card's
+# shared memory: 213,120 B at C = 512 (the kernel refuses C above 663).
+CHUNK_MAJOR_MIN_REUSE = 16
+CHUNK_MAJOR_MAX_C = 512
+# warps that fill an H100 at half occupancy (132 SMs x 32): the row form
+# splits rows over more warps until it has as many
+ROW_SPLIT_TARGET_WARPS = 132 * 32
+ROW_SPLIT_MAX_WARPS = 8         # warps a row: one block of 256 threads
+STAGED_CHUNKS = 8               # chunks a warp stages per step
+
+
+def group_rows(k: int) -> int:
+    """Rows of an entry one warp of the row form owns (csrc/xor_gather.cu
+    group_rows): the whole entry up to 4 rows, else the largest of 4, 3,
+    2 that divides k, else 1."""
+    if k <= 4:
+        return k
+    return next((g for g in (4, 3, 2) if k % g == 0), 1)
+
+
+def gather_form(P: int, B: int, S: int, C: int, k: int) -> str:
+    """K2's form for a (P, B) output over S chunks of C entries of k rows:
+    "chunk" where B >= CHUNK_MAJOR_MIN_REUSE * C and C <=
+    CHUNK_MAJOR_MAX_C, else "row". Deterministic, and no fallback: the
+    form chosen launches or raises."""
+    if B >= CHUNK_MAJOR_MIN_REUSE * C and C <= CHUNK_MAJOR_MAX_C:
+        return "chunk"
+    return "row"
+
+
+def row_split_warps(P: int, B: int, S: int, k: int) -> int:
+    """Warps per output row of the row form: doubled from 1 while the
+    launch has fewer than ROW_SPLIT_TARGET_WARPS warps, up to
+    ROW_SPLIT_MAX_WARPS and to one staging step of chunks a warp."""
+    tasks = P * B * (k // group_rows(k))
+    steps = -(-S // STAGED_CHUNKS)
+    W = 1
+    while (W < ROW_SPLIT_MAX_WARPS and 2 * W <= steps
+           and tasks * W < ROW_SPLIT_TARGET_WARPS):
+        W *= 2
+    return W
 
 
 def xor_gather_plain(db4: torch.Tensor, offsets: torch.Tensor,
@@ -48,10 +99,12 @@ def xor_gather_plain(db4: torch.Tensor, offsets: torch.Tensor,
     return acc.reshape(P, B, k * L)
 
 
-def xor_gather_cuda(db4: torch.Tensor, offsets: torch.Tensor,
-                    k: int) -> torch.Tensor:
-    """Kernel K2: same contract as xor_gather_plain, on CUDA tensors.
-    Counts its launches in xor_gather_cuda.launches."""
+def xor_gather_cuda(db4: torch.Tensor, offsets: torch.Tensor, k: int,
+                    form: str | None = None) -> torch.Tensor:
+    """Kernel K2: same contract as xor_gather_plain, on CUDA tensors, in
+    `form` ("chunk" or "row"; None: gather_form's choice; the row form
+    takes row_split_warps warps a row). Counts its launches in
+    xor_gather_cuda.launches."""
     cuda_lib.require_cuda_tensor(db4, "db4", torch.int32)
     cuda_lib.require_cuda_tensor(offsets, "offsets", torch.int32)
     S, P, CK, L = db4.shape
@@ -62,15 +115,23 @@ def xor_gather_cuda(db4: torch.Tensor, offsets: torch.Tensor,
             or offsets.shape[0] != P or offsets.shape[2] != S:
         raise ValueError(f"offsets {tuple(offsets.shape)} do not match "
                          f"db4 {tuple(db4.shape)}")
-    B = offsets.shape[1]
+    B, C = offsets.shape[1], CK // k
+    form = form or gather_form(P, B, S, C, k)
     out = torch.empty((P, B, k * L), dtype=torch.int32, device=db4.device)
-    fn = cuda_lib.function("xor_gather", "xor_gather", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
-    cuda_lib.check(
-        fn(db4.data_ptr(), offsets.data_ptr(), out.data_ptr(), S, P,
-           CK // k, k, B, cuda_lib.stream_ptr(db4.device)), "xor_gather")
+    argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    args = [db4.data_ptr(), offsets.data_ptr(), out.data_ptr(), S, P, C, k,
+            B]
+    if form == "chunk":
+        fn = cuda_lib.function("xor_gather", "xor_gather_chunk_major",
+                               argtypes + [ctypes.c_void_p])
+    elif form == "row":
+        fn = cuda_lib.function("xor_gather", "xor_gather_row_split",
+                               argtypes + [ctypes.c_int, ctypes.c_void_p])
+        args.append(row_split_warps(P, B, S, k))
+    else:
+        raise ValueError(f"unknown K2 form {form!r}")
+    cuda_lib.check(fn(*args, cuda_lib.stream_ptr(db4.device)),
+                   f"xor_gather ({form})")
     xor_gather_cuda.launches += 1
     return out
 

@@ -4,7 +4,8 @@ Each kernel lives in csrc/<name>.cu behind a plain C entry point that takes
 device pointers, sizes and a cudaStream_t, launches, and returns
 cudaGetLastError(). It is compiled on first use for sm_90a into a shared
 library under pacmann_tpu_torch/build/ (git-ignored), named by a hash of
-its source so an edited kernel is rebuilt, and loaded once per process.
+its source and of csrc/'s headers so that an edited kernel is rebuilt, and
+loaded once per process.
 Nothing here runs at import time: machines without nvcc import the
 package and use the plain torch versions on CPU tensors.
 """
@@ -41,12 +42,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def source_digest(src: Path) -> str:
+    """Hash of a source and of every header under csrc/ (a source may
+    include any of them), so that editing either rebuilds the library."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu if its build is missing, load it, cache it."""
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = source_digest(src)
     so = BUILD / f"lib{name}-{digest}.so"
     if not so.exists():
         BUILD.mkdir(parents=True, exist_ok=True)

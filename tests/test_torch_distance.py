@@ -104,3 +104,24 @@ def test_dispatcher_routes_cpu_to_plain(monkeypatch, use_pallas):
     with pytest.raises(ValueError):
         distance.l2_distance_cuda(torch.from_numpy(q), torch.from_numpy(p))
     assert distance.l2_distance_cuda.launches == launches
+
+
+def test_build_digest_covers_included_headers(monkeypatch, tmp_path):
+    """K2 and K6 include csrc/cp_async.cuh: editing a header renames the
+    build, so a stale library is never loaded."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(cuda_lib, "CSRC", tmp_path)
+    before = cuda_lib.source_digest(tmp_path / "k.cu")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert cuda_lib.source_digest(tmp_path / "k.cu") != before
+
+
+def test_package_sources_include_only_package_headers():
+    """Every header a kernel source includes by name lies in csrc/."""
+    import re
+    from pathlib import Path
+    csrc = Path(distance.__file__).resolve().parent.parent / "csrc"
+    for src in csrc.glob("*.cu"):
+        for name in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert (csrc / name).exists(), (src.name, name)

@@ -59,6 +59,67 @@ def test_gather_plain_takes_entries_over_four_rows(k):
         xor_scan.xor_gather_cuda(from_u32(db4), from_u32(off), k)
 
 
+@pytest.mark.parametrize("S,P,C,k,B", [(13, 2, 8, 3, 37), (13, 1, 8, 8, 5),
+                                       (13, 2, 4, 3, 9)])
+def test_gather_plain_at_ragged_shapes(S, P, C, k, B):
+    """The shapes the two K2 forms split unevenly: S not a multiple of the
+    8-chunk offset run, k = 3 and 8, B not a multiple of a hint block, and
+    rows that skip every chunk; the plain version equals xor_scan_parts
+    and the interpreted Pallas kernel."""
+    rng = np.random.default_rng(S * 100 + k * 10 + B)
+    db4 = _db(rng, S, P, C, k)
+    table = rng.integers(0, C, size=(P, B, S), dtype=np.uint32)
+    skip = rng.random((P, B, S)) < 0.25
+    skip[:, B // 2] = True
+    got = xor_scan.xor_hintgen(from_u32(db4), from_u32(table),
+                               torch.from_numpy(skip), k)
+    got = got.numpy().view(np.uint32)
+    parts = np.asarray(xor_scan_parts(db4, table, skip, k)).reshape(P, B, -1)
+    mm = np.asarray(xor_hintgen_mm(db4, table, skip, k, interpret=True))
+    assert np.array_equal(got, parts)
+    assert np.array_equal(got, mm)
+    assert not got[:, B // 2].any()
+
+
+# (P, B, S, C, k) -> form: the SIFT1M prep at k = 2, 5, 8; the 5M prep,
+# whose C = 2,048 rows a chunk do not fit the shared-memory ring (the row
+# form serves it); the online scans at Q = 6 and 96; both sides of the
+# switch at B = 16C; and B = 2C, where the row form was the faster
+@pytest.mark.parametrize("P,B,S,C,k,form", [
+    (16, 12512, 124, 512, 2, "chunk"), (16, 12512, 124, 512, 5, "chunk"),
+    (16, 12512, 124, 512, 8, "chunk"), (16, 35552, 156, 2048, 2, "row"),
+    (16, 6, 124, 512, 2, "row"), (16, 96, 124, 512, 2, "row"),
+    (16, 96, 124, 512, 8, "row"), (16, 8191, 124, 512, 2, "row"),
+    (16, 8192, 124, 512, 2, "chunk"), (16, 1024, 124, 512, 2, "row"),
+    (16, 100000, 124, 1024, 2, "row")])
+def test_gather_form_rule(P, B, S, C, k, form):
+    assert xor_scan.gather_form(P, B, S, C, k) == form
+
+
+@pytest.mark.parametrize("P,B,S,k,warps", [
+    (16, 6, 124, 2, 8), (16, 96, 124, 2, 4), (16, 96, 124, 8, 2),
+    (16, 96, 124, 5, 1), (16, 6, 13, 2, 2), (1, 1, 3, 1, 1),
+    (16, 1536, 124, 2, 1)])
+def test_row_split_warps(P, B, S, k, warps):
+    """Warps per row double while the launch has fewer than 132 x 32
+    warps, up to 8 and to one 8-chunk step per warp."""
+    assert xor_scan.row_split_warps(P, B, S, k) == warps
+
+
+def test_xor_gather_cuda_refuses_an_unknown_form(monkeypatch):
+    """A form name the kernel does not have raises before any launch."""
+    monkeypatch.setattr(xor_scan.cuda_lib, "require_cuda_tensor",
+                        lambda *a: None)
+    monkeypatch.setattr(xor_scan.cuda_lib, "function",
+                        lambda *a: pytest.fail("reached the library"))
+    db4 = torch.zeros((2, 1, 4, 128), dtype=torch.int32)
+    off = torch.zeros((1, 3, 2), dtype=torch.int32)
+    launches = xor_scan.xor_gather_cuda.launches
+    with pytest.raises(ValueError, match="unknown K2 form"):
+        xor_scan.xor_gather_cuda(db4, off, 1, form="plane")
+    assert xor_scan.xor_gather_cuda.launches == launches
+
+
 def test_server_scan_matches_gather_multi():
     rng = np.random.default_rng(9)
     S, P, C, k, Q = 4, 3, 8, 2, 5
