@@ -13,14 +13,22 @@ queries). Phases, in order:
      K7c (csrc/xor_gather.cu), K3/K4 (csrc/protocol.cu), K6
      (csrc/l2_distance.cu) and the attic's K7d (csrc/refresh_parity.cu),
      one nvcc each, all started together; fail if ptxas reports a spill
-     in xor_gather or l2_distance;
+     in aes_mmo, xor_gather, protocol or l2_distance;
   3. each kernel against its plain torch version on the card at the main
      path's shapes, bit-equal, both timed with CUDA events, beside its
      bound (the least time the card could take for the same work): K1
-     also spot-checked against the numpy AES oracle; K5 (the table-free
-     PRF) at Q = 6 and 96 and against K1's table at the same points; K3
-     (select_full) and K4 (claim_select) at Q = 6 and 96 on uniform,
-     contended and budget-edge rounds; K2 (xor_gather) in both its forms
+     at the main prep shape (also spot-checked against the numpy AES
+     oracle), at the 5M pin's prep shape (16, 35,552, 156) and on a ragged
+     lattice (S = 300, T * S no multiple of a block, mask 1,000), also
+     replayed from a CUDA graph; K5 (the table-free PRF) at Q = 6 and 96
+     and against K1's table at the same points; K3 (select_full) and K4
+     (claim_select) at Q = 6, 96 and 384 on uniform, contended,
+     budget-edge and deep rounds (more than K3's kept candidates contend
+     for one row, so its walk scans rows on; Q = 384 spans two of K3's
+     windows), also replayed from a CUDA graph, each case with the rounds
+     that took a row scan in K3's walk; K3 also at a synthetic S = 8,192
+     whose shared-memory plan passes 48 KiB (opted in, a cluster of 8);
+     K2 (xor_gather) in both its forms
      (chunk-major and row-split) at the prep, Q = 6 and Q = 96 shapes,
      at B = 16C - 1 and 16C (the two sides of gather_form's switch), at
      a ragged shape (S = 13, k = 3, B = 5,000, all-skip rows) and, row
@@ -30,10 +38,12 @@ queries). Phases, in order:
      on integer data and within 1e-5 (|q|^2 + |p|^2) on floats (its plain
      version is the cuBLAS form). The repair pins: K2 at k = 5 and 8
      (entries over 2 KiB) at the prep and Q = 96 shapes, and K3/K4 at
-     (P, S, Hp) = (16, 216, 14,336) (n = 7M: 72,608 B of shared memory a
-     CTA, above the 48 KiB default). The attic phase: one call of each
-     attic entry point with the launch counters from zero (each K7 kernel
-     launched, no other kernel), then each against its plain version,
+     (P, S, Hp) = (16, 216, 14,336) (n = 7M: K4's plan takes 72,608 B of
+     shared memory a CTA, above the 48 KiB default) at Q = 6, 96 and the
+     pin's whole budget, max_query_num rounds a partition. The attic phase: one
+     call of each attic entry point with the launch counters from zero
+     (each K7 kernel launched, no other kernel), then each against its
+     plain version,
      bit-equal and timed beside its bound: K7b (xor_hintgen_pallas) and
      K7a (xor_hintgen_mm_s8p, on to_plane_major_s8 of the DB, sc = 1 and
      4) on the engine's DB with K1's table and the skip mask; K7c
@@ -63,7 +73,10 @@ queries). Phases, in order:
      (k = 8, 4.16 GB packed) on route "xla", and n = 5M entries of 640 B
      (Hp = 14,336, 5.23 GB packed) on "pallas" and "fused" (one warm and
      one timed prep, three batch-96 batches, every answered row equal to
-     its raw row, success at least 0.98); then the plaintext paths: exact
+     its raw row, success at least 0.98); after the "fused" paths' counts,
+     one more (untimed) batch-96 and fused group 16 and 1 ("fused") or
+     batch ("5M fused") with the rounds that took a row scan in K3's walk
+     counted; then the plaintext paths: exact
      search (ids through K6 equal to the cuBLAS form's and to a float64
      scan's; ms/query; cli.exact_search.main once), the plaintext engine
      at full width on a random graph (ms/query, recall@10 against
@@ -111,12 +124,18 @@ KERNELS = ("aes_mmo_tables", "xor_gather", "claim_select", "select_full",
            "aes_mmo_points", "l2_distance", *ATTIC)
 # the repair pins: 3,968 B entries (960 f32 || 32 u32, k = 8 rows; K2 took
 # at most 4), and 640 B entries at n = 5M (Hp = 14,336, S = 156) and 7M
-# (S = 216), where K3/K4's shared-memory plan passes 48 KiB
+# (S = 216), where K4's shared-memory plan passes 48 KiB
 WIDE_ENTRY_BYTES = 3968
 BIG_N, PROTOCOL_PIN_N = 5_000_000, 7_000_000
 # K7c's flat single-server layout: n = 1M entries of 640 B in one
 # partition (C = 2,048, S = 492, B = T = 57,632)
 FLAT_S, FLAT_C, FLAT_B = 492, 2048, 57_632
+# K1's ragged lattice: S > 256, T * S = 300,300 (no multiple of a block of
+# 256), a chunk mask that is no power of two
+K1_RAGGED_T, K1_RAGGED_S, K1_RAGGED_MASK = 1001, 300, 1000
+# K3 at a synthetic (P, S, Hp, C) = (2, 8,192, 1,024, 16) and Q = 300: the
+# found counts of S = 8,192 chunks take its shared-memory plan past 48 KiB
+K3_WIDE_P, K3_WIDE_S, K3_WIDE_HP, K3_WIDE_C, K3_WIDE_Q = 2, 8192, 1024, 16, 300
 # the plaintext search's full width: SIFT1M's shape and value range, with
 # 1,000 queries (exact search, the engine, ground truth)
 L2_Q, L2_N, KNN_N = 1000, 1_000_000, 131_072
@@ -132,9 +151,11 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 FP32_FLOPS_PER_S = 132 * 128 * 2 * 1.98e9
 # one AES-128-MMO evaluation in T-table form, low word only: 9 rounds of 16
-# T-table reads and 4 S-box reads; 151 XOR / OR (16 a round, 2 for the
-# first round key, 5 for the last round and the feed-forward)
-AES_LOOKUPS, AES_LOGIC_OPS = 9 * 16 + 4, 9 * 16 + 2 + 5
+# T-table reads, less round 1's eight reads of words 2 and 3 of the block
+# (s, t << 3, 0, 0), the same for every evaluation under one key, and 4
+# S-box reads; 151 XOR / OR (16 a round, 2 for the first round key, 5 for
+# the last round and the feed-forward)
+AES_LOOKUPS, AES_LOGIC_OPS = 9 * 16 - 8 + 4, 9 * 16 + 2 + 5
 
 
 class SmokeFailure(RuntimeError):
@@ -229,20 +250,47 @@ def aes_bound(evals: int, nbytes: float) -> dict:
     return bound(nbytes, evals * AES_LOGIC_OPS, evals * AES_LOOKUPS)
 
 
-def compare_k1(seed: int, T: int, S: int, chunk_mask: int) -> dict:
-    """K1 against its plain version and the numpy oracle at (16, T, S)."""
+def k1_check(rk, T: int, S: int, chunk_mask: int, label: str, reps: int,
+             plain_reps: int) -> tuple[dict, object]:
+    """K1 against its plain version at (P, T, S), bit-equal; timed
+    back-to-back and replayed from a CUDA graph, beside its bound. Returns
+    (results, the kernel's table)."""
     import torch
 
+    from pacmann_tpu_torch.ops import aes
+
+    got = aes.aes_mmo_cuda(rk, T, S, chunk_mask)
+    want = aes.prf_tables_plain(rk, T, S, chunk_mask)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err == 0, f"K1 differs from its plain version at {label} "
+          f"(max err {err})")
+    del want
+    ms = cuda_ms(lambda: aes.aes_mmo_cuda(rk, T, S, chunk_mask), reps=reps)
+    dev_ms = graph_ms(lambda: aes.aes_mmo_cuda(rk, T, S, chunk_mask),
+                      reps=reps)
+    plain_ms = cuda_ms(lambda: aes.prf_tables_plain(rk, T, S, chunk_mask),
+                       reps=plain_reps, warm=0)
+    P = rk.shape[0]
+    evals = P * T * S
+    b = aes_bound(evals, 4 * evals + rk.numel())
+    print(f"K1 aes_mmo_tables {label} ({P},{T},{S}) mask {chunk_mask:#x}: "
+          f"bit-equal to plain; kernel {ms:.4f} ms ({evals / ms / 1e6:.1f} G "
+          f"evals/s; {dev_ms:.4f} ms a call replayed from a CUDA graph), "
+          f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
+                shape=[P, T, S], chunk_mask=chunk_mask, **b), got
+
+
+def compare_k1(seed: int, T: int, S: int, chunk_mask: int) -> dict:
+    """K1 against its plain version and the numpy oracle at (16, T, S)."""
     from pacmann_tpu_torch.ops import aes, aes_host
 
     rng = np.random.default_rng(seed)
     keys = [rng.bytes(16) for _ in range(16)]
     rk = aes.round_keys(keys).cuda()
-    got = aes.aes_mmo_cuda(rk, T, S, chunk_mask)
-    want = aes.prf_tables_plain(rk, T, S, chunk_mask)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    check(err == 0, f"K1 differs from its plain version (max err {err})")
+    res, got = k1_check(rk, T, S, chunk_mask, "main", reps=10, plain_reps=2)
     # spot check: 4096 lattice points against the host AES oracle
     got_np = got.cpu().numpy().view(np.uint32)
     for p in range(16):
@@ -252,17 +300,8 @@ def compare_k1(seed: int, T: int, S: int, chunk_mask: int) -> dict:
                 & np.uint64(chunk_mask)).astype(np.uint32)
         check(np.array_equal(got_np[p, t.astype(np.int64), s.astype(np.int64)],
                              host), f"K1 differs from aes_host (p={p})")
-    ms = cuda_ms(lambda: aes.aes_mmo_cuda(rk, T, S, chunk_mask), reps=10)
-    plain_ms = cuda_ms(lambda: aes.prf_tables_plain(rk, T, S, chunk_mask),
-                       reps=2)
-    evals = 16 * T * S
-    b = aes_bound(evals, 4 * evals + rk.numel())
-    print(f"K1 aes_mmo_tables (16,{T},{S}): bit-equal to plain and to "
-          f"aes_host on 4096 points; kernel {ms:.3f} ms "
-          f"({evals / ms / 1e6:.1f} G evals/s), plain {plain_ms:.3f} ms, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, table=got,
-                rk=rk)
+    print("K1 aes_mmo_tables main: bit-equal to aes_host on 4096 points")
+    return dict(res, table=got, rk=rk)
 
 
 def k5_points(gen, P: int, Q: int, S: int, Hp: int, T: int):
@@ -448,13 +487,14 @@ def compare_k2_ragged(seed: int) -> dict:
     return k2_forms(db, off, k, "ragged", reps=20, plain_reps=2)
 
 
-def compare_k2_5m(rk, seed: int) -> dict:
-    """K2 at the 5M pin engines' prep shape: n = 5M entries of 640 B
-    (P = 16, T = 35,552, S = 156, C = 2,048), K1's table of those
-    parameters with the engine's skip mask, on a random 5.23 GB DB."""
+def compare_k2_5m(rk, seed: int) -> tuple[dict, dict]:
+    """K1 and K2 at the 5M pin engines' prep shape: n = 5M entries of 640 B
+    (P = 16, T = 35,552, S = 156, C = 2,048). K1's table of those
+    parameters against its plain version, then K2 on it with the engine's
+    skip mask, on a random 5.23 GB DB. Returns (K2's, K1's results)."""
     import torch
 
-    from pacmann_tpu_torch.ops import aes, xor_scan
+    from pacmann_tpu_torch.ops import xor_scan
     from pacmann_tpu_torch.pir.device_engine import _build_skip
     from pacmann_tpu_torch.pir.params import (derive_batch_params,
                                               derive_piano_params)
@@ -464,8 +504,11 @@ def compare_k2_5m(rk, seed: int) -> dict:
     S, Hp, R, C = (p.set_size, p.primary_hint_num, p.max_query_per_chunk,
                    p.chunk_size)
     T, P, k = Hp + S * R, c.partition_num, 2
+    k1, table = k1_check(rk, T, S, p.chunk_mask, "5M prep", reps=5,
+                         plain_reps=1)
     off = torch.where(_build_skip(P, T, Hp, R, S, "cuda"), xor_scan.SKIP,
-                      aes.aes_mmo_cuda(rk, T, S, p.chunk_mask)).contiguous()
+                      table).contiguous()
+    del table
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     db = torch.empty((S, P, C * k, 128), dtype=torch.int32,
@@ -473,7 +516,7 @@ def compare_k2_5m(rk, seed: int) -> dict:
     res = k2_forms(db, off, k, "5M prep", reps=3, plain_reps=1)
     del db, off
     torch.cuda.empty_cache()
-    return res
+    return res, k1
 
 
 def compare_k2_wide(table, skip, C: int, seed: int) -> dict:
@@ -646,7 +689,11 @@ def protocol_inputs(gen, kind: str, Q: int, table, p, P: int,
     indices, budgets and dummy rows; idx_q (Q, P) local ids with 10 %
     dummy rounds. kind "contended": every round of a partition asks one
     id; "budget": one replacement left in every chunk (hist = R - 1), two
-    admissions left (finished = max_q - 2) and rounds repeating chunks."""
+    admissions left (finished = max_q - 2) and rounds repeating chunks;
+    "deep": every round of a partition asks one id whose slot-column row
+    has a tenth of its slots eligible (col == off, unprogrammed), so more
+    than K3's kept candidates contend for one row and its walk scans the
+    row on."""
     import torch
 
     from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT as DPP
@@ -673,6 +720,14 @@ def protocol_inputs(gen, kind: str, Q: int, table, p, P: int,
         hist.fill_(R - 1)
         finished.fill_(p.max_query_num - 2)
         idx_q[Q // 2:] = idx_q[0].clone()
+    elif kind == "deep":
+        idx_q[1:] = idx_q[0].clone()
+        p_ix = torch.arange(P, device="cuda")
+        ck, off = (idx_q[0] // C).long(), idx_q[0] % C
+        deep = torch.rand((P, Hp), generator=gen, device="cuda") < 0.1
+        rows = slot_col[p_ix, ck]
+        slot_col[p_ix, ck] = torch.where(deep, off[:, None], rows)
+        prog[deep] = DPP
     idx_q[torch.rand((Q, P), generator=gen, device="cuda") < 0.1] = -1
     return [slot_col, prog, ri(T, P, Hp), table, repl_idx, hist, finished,
             idx_q, ri(C, Q, P, S)]
@@ -707,10 +762,44 @@ def protocol_bounds(a, sel, S: int, Hp: int) -> tuple[dict, dict]:
     return k3, k4
 
 
-def compare_protocol(table, p, P: int, psize: int, quotas,
-                     seed: int) -> dict:
-    """K3 and K4 against their plain versions at the main path's shapes,
-    every output bit-equal; times of the uniform case (CUDA events)."""
+def k3_rescans(a, sel, C: int) -> int:
+    """Rounds of one K3 call whose slot lies past the first K =
+    min(Q, SELECT_CANDIDATES) eligible slots of its row: those K3's walk
+    found by scanning the row on, its candidates all claimed. From the
+    call's inputs `a` and its outputs `sel`."""
+    import torch
+
+    from pacmann_tpu_torch.ops import protocol_kernels as pk
+    from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT as DPP
+
+    slot_col, prog, idx_q = a[0], a[1], a[7]
+    hit, _, _, _, chunk, idxu = sel
+    Q, P = idx_q.shape
+    S = slot_col.shape[1]
+    pc = torch.where(prog != DPP, torch.div(prog, C, rounding_mode="floor"),
+                     -1)
+    K = min(Q, pk.SELECT_CANDIDATES)
+    p_ix = torch.arange(P, device=prog.device)[None, :]
+    took = 0
+    for q0 in range(0, Q, 256):         # (256, P, Hp) rows at a time
+        ck, h = chunk[q0:q0 + 256], hit[q0:q0 + 256].long()[..., None]
+        live = (idx_q[q0:q0 + 256] >= 0) & (ck < S)
+        rows = slot_col[p_ix, ck.clamp(max=S - 1).long()]
+        elig = ((rows == (idxu[q0:q0 + 256] % C)[..., None])
+                & (pc[None] != ck[..., None]) & live[..., None])
+        before = (elig.cumsum(-1) - elig.long()).gather(-1, h)[..., 0]
+        took += int((elig.gather(-1, h)[..., 0] & (before >= K)).sum())
+    return took
+
+
+def compare_protocol(table, p, P: int, psize: int, quotas, seed: int,
+                     kinds=("uniform", "contended", "budget", "deep"),
+                     plain_reps: int = 3) -> dict:
+    """K3 and K4 against their plain versions, every output bit-equal,
+    with the rounds that took a row scan in K3's walk; times of the uniform
+    case (CUDA events over back-to-back calls, and replayed from a CUDA
+    graph: K4's replay only where its plan needs no opt-in above 48 KiB;
+    the plain versions' only where plain_reps > 0)."""
     import torch
 
     from pacmann_tpu_torch.ops import protocol_kernels as pk
@@ -723,7 +812,7 @@ def compare_protocol(table, p, P: int, psize: int, quotas,
               dpp=DPP)
     res = {}
     for Q in quotas:
-        for kind in ("uniform", "contended", "budget"):
+        for kind in kinds:
             a = protocol_inputs(gen, kind, Q, table, p, P, psize)
             sel, qs = pk.select_full_cuda(*a, **kw)
             sel_p, qs_p = pk.select_full_plain(*a, **kw)
@@ -743,34 +832,121 @@ def compare_protocol(table, p, P: int, psize: int, quotas,
                   f"{kind} (max err {k4_err})")
             served, found = int(sel_p[1].sum()), int(fnd_p.sum())
             row = dict(k3_err=k3_err, k4_err=k4_err, served=served,
-                       found=found, real=int(real.sum()))
+                       found=found, real=int(real.sum()),
+                       rescans=k3_rescans(a, sel_p, p.chunk_size))
+            kept = min(Q, pk.SELECT_CANDIDATES)
+            if kind == "deep" and Q >= kept + 2:
+                # every partition found at least K + 2 slots of its one
+                # row: the walk scanned that row on
+                least = int(fnd_p.sum(dim=0).min())
+                check(least >= kept + 2 and row["rescans"] > 0,
+                      f"K3 deep Q={Q}: a partition found {least} slots "
+                      f"(K + 2 = {kept + 2}), {row['rescans']} row scans")
             if kind == "uniform":
                 k3_b, k4_b = protocol_bounds(a, sel_p, p.set_size,
                                              p.primary_hint_num)
                 row.update(k3_bound=k3_b, k4_bound=k4_b)
+                def k3():
+                    return pk.select_full_cuda(*a, **kw)
+
+                def k4():
+                    return pk.claim_select_cuda(*claim_args, C=p.chunk_size,
+                                                dpp=DPP)
                 row.update(
-                    k3_ms=cuda_ms(lambda: pk.select_full_cuda(*a, **kw), 50),
-                    k3_plain_ms=cuda_ms(
-                        lambda: pk.select_full_plain(*a, **kw), 3),
-                    k4_ms=cuda_ms(lambda: pk.claim_select_cuda(
-                        *claim_args, C=p.chunk_size, dpp=DPP), 50),
-                    k4_plain_ms=cuda_ms(lambda: pk.claim_select_plain(
-                        *claim_args, C=p.chunk_size, dpp=DPP), 3))
-                times = (f"; K3 kernel {row['k3_ms']:.4f} ms, plain "
-                         f"{row['k3_plain_ms']:.3f} ms, bound "
+                    k3_ms=cuda_ms(k3, 50), k3_graph_ms=graph_ms(k3, 50),
+                    k4_ms=cuda_ms(k4, 50),
+                    k4_graph_ms=graph_ms(k4, 50) if pk.smem_bytes(
+                        p.primary_hint_num, p.set_size) <= 48 * 1024
+                    else None)
+                if plain_reps:
+                    row.update(
+                        k3_plain_ms=cuda_ms(lambda: pk.select_full_plain(
+                            *a, **kw), plain_reps),
+                        k4_plain_ms=cuda_ms(lambda: pk.claim_select_plain(
+                            *claim_args, C=p.chunk_size, dpp=DPP),
+                            plain_reps))
+                k4_graph = ("" if row["k4_graph_ms"] is None else
+                            f" ({row['k4_graph_ms']:.4f} replayed)")
+                k3_plain, k4_plain = (
+                    (f", plain {row['k3_plain_ms']:.3f} ms",
+                     f", plain {row['k4_plain_ms']:.3f} ms") if plain_reps
+                    else ("", ""))
+                times = (f"; K3 kernel {row['k3_ms']:.4f} ms "
+                         f"({row['k3_graph_ms']:.4f} replayed from a CUDA "
+                         f"graph){k3_plain}, bound "
                          f"{k3_b['bound_ms']:.4f} ({k3_b['bound_by']}); K4 "
-                         f"kernel {row['k4_ms']:.4f} ms, plain "
-                         f"{row['k4_plain_ms']:.3f} ms, bound "
-                         f"{k4_b['bound_ms']:.4f} ({k4_b['bound_by']})")
+                         f"kernel {row['k4_ms']:.4f} ms{k4_graph}{k4_plain}, "
+                         f"bound {k4_b['bound_ms']:.4f} ({k4_b['bound_by']})")
             else:
                 times = ""
             print(f"K3 select_full + K4 claim_select (P, S, Hp) = ({P}, "
                   f"{p.set_size}, {p.primary_hint_num}) Q={Q} {kind}: "
                   "bit-equal "
                   f"to plain ({row['real']} real rounds, {found} found, "
-                  f"{served} served){times}")
+                  f"{served} served, {row['rescans']} by a row scan in K3)"
+                  f"{times}")
             res[f"Q={Q} {kind}"] = row
     return res
+
+
+def compare_k3_wide(seed: int) -> dict:
+    """K3 and K4 against their plain versions at K3_WIDE_*, uniform and
+    contended: K3's plan passes the 48 KiB default, so its launch opts in,
+    on clusters of 8 CTAs over two windows of rounds."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from pacmann_tpu_torch.ops import protocol_kernels as pk
+
+    P, S, Hp, C = K3_WIDE_P, K3_WIDE_S, K3_WIDE_HP, K3_WIDE_C
+    need = pk.select_smem_bytes(Hp, S)
+    check(need > 48 * 1024, f"K3 wide: plan {need} B needs no opt-in")
+    print(f"K3 wide (P, S, Hp) = ({P}, {S}, {Hp}): plan {need} B a CTA")
+    p = SimpleNamespace(set_size=S, primary_hint_num=Hp, chunk_size=C,
+                        max_query_per_chunk=4, max_query_num=1000)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    table = torch.randint(0, C, (P, 2 * Hp, S), generator=gen,
+                          dtype=torch.int32, device="cuda")
+    return compare_protocol(table, p, P, S * C, (K3_WIDE_Q,), seed,
+                            kinds=("uniform", "contended"), plain_reps=1)
+
+
+def fused_rescans(e, fs, raw: np.ndarray, seed: int) -> dict:
+    """One untimed batch-96 on a "fused" engine and, given its fused
+    search, one group-16 and one group-1 search, with K3's calls counted:
+    launches, real rounds, and rounds its walk found by scanning a row on
+    (k3_rescans)."""
+    from pacmann_tpu_torch.ops import protocol_kernels as pk
+
+    kernel = pk.select_full_cuda
+    tally = dict(launches=0, rounds=0, rescans=0)
+
+    def counted(*a, **kw):
+        sel, qs = kernel(*a, **kw)
+        tally["launches"] += 1
+        tally["rounds"] += int((a[7] >= 0).sum())
+        tally["rescans"] += k3_rescans(a, sel, kw["C"])
+        return sel, qs
+
+    # the kernel's wrapper adds to the launch counter of the module's
+    # select_full_cuda, which is `counted` meanwhile
+    counted.launches = 0
+    pk.select_full_cuda = counted
+    try:
+        rng = np.random.default_rng(seed)
+        e.query([int(i) for i in rng.integers(0, raw.shape[0], 96)])
+        if fs is not None:
+            for G in (16, 1):
+                fs.ensure_budget(20, G, 3)
+                fs.search(rng.random((G, DIM), dtype=np.float32), k=10,
+                          max_step=20, parallel=3)
+    finally:
+        pk.select_full_cuda = kernel
+    print(f"K3 on the engine's own rounds: {tally['launches']} launches, "
+          f"{tally['rounds']} real rounds, {tally['rescans']} by a row scan")
+    return tally
 
 
 def small_parity(seed: int, route: str, table_free: bool = False):
@@ -1406,7 +1582,7 @@ def main() -> int:
               + " | ".join(ln for ln in lines if "registers" in ln)
               + (f"; spills: {' | '.join(spills)}" if spills else
                  "; no spills"))
-        if name in ("xor_gather", "l2_distance"):
+        if name in ("aes_mmo", "xor_gather", "protocol", "l2_distance"):
             check(ptxas_notes[name] and not spills,
                   f"ptxas reports spills (or no report) for {name}")
 
@@ -1459,26 +1635,38 @@ def main() -> int:
     # then the routes against the CPU and against each other
     k1 = compare_k1(args.seed + 10, T, S, p.chunk_mask)
     table, k1_rk = k1.pop("table"), k1.pop("rk")
+    # a ragged lattice: S > 256, T * S no multiple of a block, a mask that
+    # is no power of two
+    k1_ragged = k1_check(k1_rk, K1_RAGGED_T, K1_RAGGED_S, K1_RAGGED_MASK,
+                         "ragged", reps=10, plain_reps=1)[0]
     k5 = compare_k5(k1_rk, table, p, (6, 96), args.seed + 15)
     skip = _build_skip(P, T, Hp, R, S, engine.device)
     k2 = compare_k2(engine.db, table, skip, (6, 96), args.seed + 11)
-    k34 = compare_protocol(table, p, P, c.partition_size, (6, 96),
+    k34 = compare_protocol(table, p, P, c.partition_size, (6, 96, 384),
                            args.seed + 13)
     # the repair pins: K2 at k = 5 and 8; K3/K4 at Hp = 14,336 (n = 7M)
     k2_wide = compare_k2_wide(table, skip, p.chunk_size, args.seed + 19)
     k2_ragged = compare_k2_ragged(args.seed + 23)
-    k2_5m = compare_k2_5m(k1_rk, args.seed + 24)
+    k2_5m, k1_5m = compare_k2_5m(k1_rk, args.seed + 24)
     c7 = derive_batch_params(PROTOCOL_PIN_N, ENTRY_BYTES, BATCH, FAIL)
     p7 = derive_piano_params(c7.partition_size, ENTRY_BYTES, FAIL)
     table7 = aes.aes_mmo_cuda(
         k1_rk, p7.primary_hint_num + p7.set_size * p7.max_query_per_chunk,
         p7.set_size, p7.chunk_mask)
-    print(f"K3/K4 pin: n={PROTOCOL_PIN_N}, shared memory "
-          f"{pk.smem_bytes(p7.primary_hint_num, p7.set_size)} B a CTA "
-          f"(opt-in limit {pk.smem_limit(torch.cuda.current_device())} B)")
+    print(f"K3/K4 pin: n={PROTOCOL_PIN_N}, shared memory a CTA: K4 "
+          f"{pk.smem_bytes(p7.primary_hint_num, p7.set_size)} B, K3 "
+          f"{pk.select_smem_bytes(p7.primary_hint_num, p7.set_size)} B "
+          f"(opt-in limit {pk.smem_limit(torch.cuda.current_device())} B); "
+          f"max_query_num {p7.max_query_num}")
     k34_wide = compare_protocol(table7, p7, c7.partition_num,
                                 c7.partition_size, (6, 96), args.seed + 21)
+    # the pin's whole budget in one select: max_query_num rounds a partition
+    k34_wide.update(compare_protocol(
+        table7, p7, c7.partition_num, c7.partition_size,
+        (p7.max_query_num,), args.seed + 25, kinds=("uniform",),
+        plain_reps=0))
     del table7
+    k3_wide = compare_k3_wide(args.seed + 26)
     torch.cuda.empty_cache()
     # the attic at the main deployment's shapes, its entry points counted
     k7, attic_launches = attic_phase(engine.db, table, skip, args.seed + 22,
@@ -1537,6 +1725,7 @@ def main() -> int:
         launches[path] = read_counts(path, expected(route, tf))
         paths[path] = res
         if path == "fused":
+            res["k3_rescans"] = fused_rescans(e, fs, raw, args.seed + 32)
             select_ms = pir_select_times(e, (6, 96), args.seed + 50)
         del e
     path = "pallas table-free measure_comm"
@@ -1545,7 +1734,7 @@ def main() -> int:
     paths[path] = measure_comm_phase(engine.db, args.seed + 60)
     launches[path] = read_counts(path, expected("pallas", True))
     # the repair pins on the engine: 3,968 B entries (k = 8) on "xla", and
-    # n = 5M (Hp = 14,336: K3/K4 above 48 KiB) on "pallas" and "fused";
+    # n = 5M (Hp = 14,336: K4 above 48 KiB) on "pallas" and "fused";
     # each DB freed before the next
     for label, n, entry_bytes, routes in (
             ("3968 B", N, WIDE_ENTRY_BYTES, ("xla",)),
@@ -1572,6 +1761,9 @@ def main() -> int:
             paths[path] = dict(engine=engine_phase(e, big_raw, args.seed + 81,
                                                    preps=1, batches=3))
             launches[path] = read_counts(path, expected(route, False))
+            if route == "fused":
+                paths[path]["k3_rescans"] = fused_rescans(
+                    e, None, big_raw, args.seed + 82)
             del e
         del big_raw, big_db
         torch.cuda.empty_cache()
@@ -1587,9 +1779,10 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"peak device memory over the paths {peak_gb:.3f} GB")
 
-    details = dict(card=card, k1=k1, k2=k2, k2_wide=k2_wide,
-                   k2_ragged=k2_ragged, k2_5m=k2_5m, k3_k4=k34,
-                   k3_k4_hp14336=k34_wide, k5=k5, k6=k6, k7=k7, paths=paths,
+    details = dict(card=card, k1=k1, k1_ragged=k1_ragged, k1_5m=k1_5m,
+                   k2=k2, k2_wide=k2_wide, k2_ragged=k2_ragged, k2_5m=k2_5m,
+                   k3_k4=k34, k3_k4_hp14336=k34_wide, k3_k4_wide_s=k3_wide,
+                   k5=k5, k6=k6, k7=k7, paths=paths,
                    ptxas=ptxas_notes,
                    launches=launches, pir_select_ms=select_ms,
                    resident_state=resident, peak_device_gb=peak_gb,
@@ -1613,8 +1806,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("aes_mmo_tables", "aes_mmo.cu",
-              "pacmann_tpu/ops/aes_pallas.py:129", k1["max_abs_err"], k1,
-              k1),
+              "pacmann_tpu/ops/aes_pallas.py:129",
+              max(v["max_abs_err"] for v in (k1, k1_ragged, k1_5m)), k1, k1),
         entry("xor_gather", "xor_gather.cu",
               "pacmann_tpu/ops/xor_scan.py:346",
               max(v["max_abs_err"] for v in (
@@ -1623,12 +1816,14 @@ def main() -> int:
               k2["prep"], k2["prep"]),
         entry("claim_select", "protocol.cu",
               "pacmann_tpu/ops/protocol_kernels.py:119",
-              max(v["k4_err"] for v in (*k34.values(), *k34_wide.values())),
+              max(v["k4_err"] for v in (*k34.values(), *k34_wide.values(),
+                                        *k3_wide.values())),
               dict(ms=k34_q96["k4_ms"], plain_ms=k34_q96["k4_plain_ms"]),
               k34_q96["k4_bound"]),
         entry("select_full", "protocol.cu",
               "pacmann_tpu/ops/protocol_kernels.py:287",
-              max(v["k3_err"] for v in (*k34.values(), *k34_wide.values())),
+              max(v["k3_err"] for v in (*k34.values(), *k34_wide.values(),
+                                        *k3_wide.values())),
               dict(ms=k34_q96["k3_ms"], plain_ms=k34_q96["k3_plain_ms"]),
               k34_q96["k3_bound"]),
         entry("aes_mmo_points", "aes_mmo.cu",

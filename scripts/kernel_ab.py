@@ -1,0 +1,236 @@
+#!/usr/bin/env python3
+"""A/B of the port's kernels K1, K3, K4 and K5 on one NVIDIA GPU.
+
+Times the kernels of this tree and of a base tree (another checkout, e.g.
+a `git archive` of the parent commit unpacked into a git-ignored
+directory) in the turns base, tree, tree, base. Each turn is a process of
+its own that imports its tree's pacmann_tpu_torch, so each tree's wrappers
+build and launch its own csrc/, while the inputs and the timing are this
+tree's chip_smoke.py helpers for both (the base's chip_smoke.py may time
+fewer shapes, or none replayed from a CUDA graph, which is the only
+device-only time of short kernels). Shapes: the SIFT1M deployment's (n = 1M
+entries of 640 B, batch 32) and the pins n = 5M (K1) and n = 7M (K3/K4 at
+Hp = 14,336); back-to-back calls (CUDA events) and calls replayed from a
+CUDA graph (device time). Every K1 and K3 result is held against its plain
+version. With --phases it then times K3's phases in this tree: protocol.cu
+built with -DK3_PHASE_CLOCKS, whose marks record the SM clock (clock64) of
+CTA 0 of partition 0 around each cluster barrier, summed over the windows.
+
+    python3 scripts/kernel_ab.py --base DIR [--phases]
+
+Prints one line per measurement and writes chiprun_out/kernel_ab.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PHASES = ("phase1", "sync1", "walk", "sync2", "phase3")
+
+
+def cases(cs, aes, pk, gen) -> tuple[list, list, list]:
+    """K1, K5 and K3/K4 cases: (label, arguments...) on the card."""
+    from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT as DPP
+    from pacmann_tpu_torch.pir.params import (derive_batch_params,
+                                              derive_piano_params)
+
+    def params(n):
+        c = derive_batch_params(n, cs.ENTRY_BYTES, cs.BATCH, cs.FAIL)
+        return c, derive_piano_params(c.partition_size, cs.ENTRY_BYTES,
+                                      cs.FAIL)
+
+    rk = aes.round_keys([bytes([i]) * 16 for i in range(16)]).cuda()
+    k1, k3, k5 = [], [], []
+    for label, n in (("1M", cs.N), ("5M", cs.BIG_N)):
+        _, p = params(n)
+        T = p.primary_hint_num + p.set_size * p.max_query_per_chunk
+        k1.append((label, rk, T, p.set_size, p.chunk_mask))
+    for label, n, quotas in (("3584", cs.N, (6, 96, 384)),
+                             ("14336", cs.PROTOCOL_PIN_N, (6, 96))):
+        c, p = params(n)
+        T = p.primary_hint_num + p.set_size * p.max_query_per_chunk
+        table = aes.aes_mmo_cuda(rk, T, p.set_size, p.chunk_mask)
+        kw = dict(C=p.chunk_size, R=p.max_query_per_chunk,
+                  Hp=p.primary_hint_num, S=p.set_size,
+                  max_q=p.max_query_num, dpp=DPP)
+        for Q in quotas:
+            if label == "3584" and Q < 384:
+                tags, xs = cs.k5_points(gen, c.partition_num, Q, p.set_size,
+                                        p.primary_hint_num, T)
+                k5.append((f"Q={Q}", rk, tags, xs, p.chunk_mask))
+            for kind in ("uniform", "deep"):
+                a = cs.protocol_inputs(gen, kind, Q, table, p,
+                                       c.partition_num, c.partition_size)
+                k3.append((f"{label} Q={Q} {kind}", a, kw,
+                           pk.select_full_plain(*a, **kw)))
+        del table
+    return k1, k5, k3
+
+
+def turn(tree: Path) -> dict:
+    """One turn: this process times `tree`'s kernels, with this tree's
+    chip_smoke.py helpers."""
+    sys.path[:0] = [str(ROOT)]
+    import torch
+
+    import chip_smoke as cs
+    sys.path[:0] = [str(tree)]
+    from pacmann_tpu_torch.ops import aes
+    from pacmann_tpu_torch.ops import protocol_kernels as pk
+    from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT as DPP
+
+    assert Path(pk.__file__).resolve().is_relative_to(tree.resolve())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    k1, k5, k3 = cases(cs, aes, pk, gen)
+    res = {}
+    for label, rk, T, S, mask in k1:
+        got = aes.aes_mmo_cuda(rk, T, S, mask)
+        cs.check(torch.equal(got, aes.prf_tables_plain(rk, T, S, mask)),
+                 f"{tree}: K1 {label} differs from its plain version")
+        del got
+
+        def k1_call():
+            return aes.aes_mmo_cuda(rk, T, S, mask)
+        res[f"K1 {label}"] = (cs.cuda_ms(k1_call, 10),
+                              cs.graph_ms(k1_call, 5))
+    for label, rk, tags, xs, mask in k5:
+        def k5_call():
+            return aes.aes_mmo_points_cuda(rk, tags, xs, mask)
+        res[f"K5 {label}"] = (cs.cuda_ms(k5_call, 50),
+                              cs.graph_ms(k5_call, 50))
+    for label, a, kw, (sel_p, qs_p) in k3:
+        sel, qs = pk.select_full_cuda(*a, **kw)
+        cs.check(torch.equal(qs, qs_p) and all(
+            torch.equal(x, y) for x, y in zip(sel, sel_p)),
+            f"{tree}: K3 {label} differs from its plain version")
+        claim = (a[0], a[1], sel_p[4], sel_p[5] % kw["C"], a[7] >= 0)
+
+        def k3_call():
+            return pk.select_full_cuda(*a, **kw)
+
+        def k4_call():
+            return pk.claim_select_cuda(*claim, C=kw["C"], dpp=DPP)
+        res[f"K3 {label}"] = (cs.cuda_ms(k3_call, 50),
+                              cs.graph_ms(k3_call, 50))
+        # K4's replay only where its plan needs no opt-in above 48 KiB
+        res[f"K4 {label}"] = (cs.cuda_ms(k4_call, 50), cs.graph_ms(
+            k4_call, 50) if pk.smem_bytes(kw["Hp"], kw["S"]) <= 48 * 1024
+            else None)
+    return res
+
+
+def phases() -> dict:
+    """K3's SM clocks per phase at each case, from this tree's protocol.cu
+    built with -DK3_PHASE_CLOCKS and called through its C entry point."""
+    sys.path[:0] = [str(ROOT)]
+    import torch
+
+    import chip_smoke as cs
+    from pacmann_tpu_torch.ops import aes
+    from pacmann_tpu_torch.ops import protocol_kernels as pk
+    from pacmann_tpu_torch.utils import cuda_lib
+
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    cuda_lib.BUILD.mkdir(parents=True, exist_ok=True)
+    so = cuda_lib.BUILD / "libprotocol_phases.so"
+    subprocess.run([nvcc, *cuda_lib.NVCC_FLAGS, "-DK3_PHASE_CLOCKS", "-o",
+                    str(so), str(cuda_lib.CSRC / "protocol.cu")], check=True)
+    lib = ctypes.CDLL(str(so.resolve()))
+    lib.select_full.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    lib.k3_clocks_read.argtypes = [ctypes.c_void_p]
+    windows = 32                        # kClockWindows in protocol.cu
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    res = {}
+    for label, a, kw, (sel_p, qs_p) in cases(cs, aes, pk, gen)[2]:
+        Q, P = a[7].shape
+        S = kw["S"]
+        qs = torch.empty((Q, P, S), dtype=torch.int32, device="cuda")
+        sel = [torch.empty((Q, P), dtype=dt, device="cuda") for dt in (
+            torch.int32, torch.bool, torch.bool, torch.int32, torch.int32,
+            torch.int32)]
+
+        def call():
+            cuda_lib.check(lib.select_full(
+                *(t.data_ptr() for t in a), qs.data_ptr(),
+                *(t.data_ptr() for t in sel), P, S, kw["Hp"],
+                a[3].shape[1], kw["R"], Q, kw["C"], kw["max_q"], kw["dpp"],
+                cuda_lib.stream_ptr(qs.device)), "select_full")
+        call()
+        cuda_lib.check(lib.k3_clocks_zero(), "k3_clocks_zero")
+        call()
+        torch.cuda.synchronize()
+        cs.check(torch.equal(qs, qs_p) and all(
+            torch.equal(x, y) for x, y in zip(sel, sel_p)),
+            f"K3 {label} (phase clocks) differs from its plain version")
+        buf = (ctypes.c_ulonglong * ((windows + 1) * 6))()
+        cuda_lib.check(lib.k3_clocks_read(ctypes.addressof(buf)),
+                       "k3_clocks_read")
+        marks = [list(buf[6 * w:6 * w + 6]) for w in range(windows + 1)]
+        used = [m for m in marks[:windows] if m[0]]
+        want = min(windows, -(-Q // pk.SELECT_WINDOW))
+        cs.check(len(used) == want and all(all(m) for m in used),
+                 f"K3 {label}: marks of {len(used)} windows, not {want}")
+        k = marks[windows]
+        clocks = dict(init=k[1] - k[0], sync0=k[2] - k[1],
+                      **{name: sum(m[i + 1] - m[i] for m in used)
+                         for i, name in enumerate(PHASES)},
+                      last_sync=k[4] - k[3], total=k[4] - k[0])
+        res[label] = clocks
+        print(f"K3 phases {label}: SM clocks {clocks}", flush=True)
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--base", type=Path,
+                    help="root of the base tree (holds pacmann_tpu_torch)")
+    ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--out", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.turn is not None:
+        args.out.write_text(json.dumps(turn(args.turn)))
+        return 0
+    if args.base is None:
+        ap.error("--base is required")
+
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path[:0] = [str(ROOT)]
+    import chip_smoke as cs
+
+    print(cs.gpu_line())
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    res = {}
+    for i, (name, tree) in enumerate((("base", args.base), ("tree", ROOT),
+                                      ("tree", ROOT), ("base", args.base))):
+        got = out / f"kernel_ab_turn{i}.json"
+        subprocess.run([sys.executable, __file__, "--turn", str(tree),
+                        "--out", str(got)], check=True)
+        for key, value in json.loads(got.read_text()).items():
+            res.setdefault(key, {}).setdefault(name, []).append(value)
+            print(name, key, value, flush=True)
+    if args.phases:
+        res["K3 phases"] = phases()
+    (out / "kernel_ab.json").write_text(json.dumps(res, indent=1))
+    for key, v in res.items():
+        if key != "K3 phases":
+            print(key, json.dumps(v))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -38,7 +38,10 @@ def test_key_schedule_matches_reference():
     assert np.array_equal(aes_host.expand_key(key), ref_expand(key))
 
 
-@pytest.mark.parametrize("T,S,cm", [(40, 12, 31), (17, 8, 0xFFFFFFFF)])
+# the lattice's varying bytes: s past its first byte (S > 256, a mask that
+# is no power of two), and t << 3 into the block's third byte (T > 2^13)
+@pytest.mark.parametrize("T,S,cm", [(40, 12, 31), (17, 8, 0xFFFFFFFF),
+                                    (3, 300, 1000), (8200, 2, 0x7FF)])
 def test_plain_tables_match_xla_twin_and_host(T, S, cm):
     rng = np.random.default_rng(T)
     keys = [rng.bytes(16) for _ in range(2)]

@@ -164,6 +164,113 @@ def test_select_full_plain_matches_jax_kernel_and_xla_routes(kind):
         assert bool((ig == -1).any())
 
 
+def _k3_model(slot_col, prog, tag, table, repl_idx, hist, finished, idx_q,
+              rnd, *, C, R, S, max_q, dpp, K, window):
+    """numpy model of kernel K3 (csrc/protocol.cu), window by window of
+    `window` rounds, each in three phases: each round's first K eligible
+    slots, found without the other rounds; the walk in round order, taking
+    a round's first unclaimed candidate, and, when all K of a full list are
+    claimed, the first eligible slot after the K-th that is not claimed; then
+    the query rows. The claimed set, found counts and rank carry over from
+    window to window. Returns (sel, qs) as select_full."""
+    Q, P = idx_q.shape
+    Hp = slot_col.shape[2]
+    hit, ig, chunk, idxu = (np.zeros((Q, P), np.int64) for _ in range(4))
+    ok_q, ok_r = (np.zeros((Q, P), bool) for _ in range(2))
+    qs = np.zeros((Q, P, S), np.int64)
+    for p in range(P):
+        pc = np.where(prog[p] != dpp, prog[p].astype(np.int64) // C, -1)
+
+        def eligible(ck, off, start, claimed):
+            e = (slot_col[p, ck, start:] == off) & (pc[start:] != ck)
+            if claimed is not None:
+                e &= ~claimed[start:]
+            return start + np.flatnonzero(e)
+
+        claimed = np.zeros(Hp, bool)
+        found_c = np.zeros(S, np.int64)
+        rankp = 0
+        for q0 in range(0, Q, window):
+            rounds = []
+            for q in range(q0, min(Q, q0 + window)):    # 1. candidates
+                idx = int(idx_q[q, p])
+                u = max(idx, 0)
+                ck, off = u // C, u % C
+                live = idx >= 0 and ck < S
+                rounds.append((q, u, ck, off, ck < S,
+                               eligible(ck, off, 0, None)[:K] if live
+                               else np.zeros(0, np.int64)))
+            for q, u, ck, off, in_range, cands in rounds:   # 2. the walk
+                free = cands[~claimed[cands]]
+                h = int(free[0]) if free.size else -1
+                if h < 0 and cands.size == K:
+                    rest = eligible(ck, off, int(cands[-1]) + 1, claimed)
+                    h = int(rest[0]) if rest.size else -1
+                fnd = h >= 0
+                prev = int(found_c[ck]) if in_range else 0
+                g = (int(hist[p, ck]) if in_range else 0) + prev - (not fnd)
+                okr = fnd and g < R
+                okq = okr and rankp < max_q - int(finished[p])
+                rankp += okr
+                if fnd:
+                    claimed[h] = True
+                    found_c[ck] += 1
+                gc = min(g, R - 1)
+                row = rnd[q, p].astype(np.int64)          # 3. the row
+                if okq:
+                    row = table[p, tag[p, h]].astype(np.int64)
+                    hp = int(prog[p, h])
+                    if hp != dpp and hp // C < S:
+                        row[hp // C] = hp % C
+                    row[ck] = int(repl_idx[p, ck, gc]) % C if gc >= 0 else 0
+                qs[q, p] = row
+                hit[q, p], ok_q[q, p], ok_r[q, p] = (h if fnd else 0), okq, okr
+                ig[q, p], chunk[q, p], idxu[q, p] = gc, ck, u
+    return (hit, ok_q, ok_r, ig, chunk, idxu), qs
+
+
+@pytest.mark.parametrize("K,window", [(2, 5), (4, 7)])
+@pytest.mark.parametrize("kind", ["contended", "deep"])
+def test_k3_phase_model_matches_jax_kernel_and_claim_twin(kind, K, window):
+    """The windowed three phases reach the serial selection's result where
+    more rounds contend for one row than K keeps, so rounds scan their row
+    on: contended rounds on rows of ~15 eligible slots (~1 in "contended"),
+    three ids alternating on such rows in "deep"; 24 rounds in windows of 5
+    or 7."""
+    Q, P, S, Hp, C, R, max_q = 24, 3, 8, 480, 32, 5, 1000
+    rng = np.random.default_rng(60 + K + 7 * (kind == "deep"))
+    (slot_col, prog, tag, table, repl_idx, hist, finished, idx_q,
+     rnd) = _select_case(rng, "contended", Q, P, S, Hp, C, R, max_q)
+    ids = [int(idx_q[0, 0])]
+    if kind == "deep":
+        ids += [ids[0] // C * C + (ids[0] + 1) % C, (ids[0] + 3 * C) % (S * C)]
+    for u in ids:
+        dense = rng.random((P, Hp)) < 0.03
+        slot_col[:, u // C][dense] = u % C
+        prog[dense] = DPP
+    idx_q[:] = np.array([ids[q * 7 // 3 % len(ids)] for q in range(Q)])[:, None]
+    idx_q[rng.random((Q, P)) < 0.1] = -1
+    hist[:] = 0
+    kw = dict(C=C, R=R, S=S, max_q=max_q, dpp=DPP)
+    sel, qs = _k3_model(slot_col, prog, tag, table, repl_idx, hist, finished,
+                        idx_q, rnd, K=K, window=window, **kw)
+    j_sel, j_qs = jpk.select_full(
+        jnp.asarray(slot_col), jnp.asarray(prog), jnp.asarray(tag),
+        jnp.asarray(table), jnp.asarray(repl_idx), jnp.asarray(hist),
+        jnp.asarray(finished), jnp.asarray(idx_q), jnp.asarray(rnd), Hp=Hp,
+        **kw)
+    assert np.array_equal(qs, np.asarray(j_qs).astype(np.int64))
+    for i, field in enumerate(SEL_NAMES):
+        assert np.array_equal(sel[i], np.asarray(j_sel[i])), field
+    real = idx_q >= 0
+    n_hit, n_found = jpk.claim_select_np(
+        slot_col, prog, sel[4].astype(np.int32), (sel[5] % C).astype(np.uint32),
+        real, C=C, dpp=DPP)
+    assert np.array_equal(sel[0], n_hit)
+    # more rounds than K found a slot of one row: some scanned it on
+    assert int(np.asarray(n_found).sum(axis=0).min()) > K + 2
+
+
 def _engine_pair(route, n=2048, seed=0, prep_seed=7):
     rng = np.random.default_rng(seed)
     raw = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32)
@@ -319,3 +426,19 @@ def test_shared_memory_plan_is_refused_beyond_the_limit():
     assert tpk.smem_bytes(14_336, 216) == 72_608 > 48 * 1024
     with pytest.raises(ValueError, match=r"235560 B .*Hp=47000, S=124"):
         tpk._check_smem(47_000, 124, "select_full", h100)
+    # K3's plan holds one window of rounds (two 16-byte records and 16
+    # 16-bit candidates a round), the claimed bitmap and found counts, so Q
+    # does not enter it: the 5M and 7M pins' whole budget (max_query_num
+    # 7,072 and 8,591 a partition) fits under the default 48 KiB, as
+    # does Hp = 2^16; S = 8,192 takes it past 48 KiB (opted in); a plan
+    # beyond the limit, or Hp past the 16-bit slot indices, raises
+    for Hp, S in ((3584, 124), (14_336, 156), (14_336, 216), (1 << 16, 216)):
+        tpk._check_smem(Hp, S, "select_full", 48 * 1024, select=True)
+    assert tpk.select_smem_bytes(3584, 124) == (
+        256 * 64 + 112 * 4 + 124 * 4 + 2 * 16 * 160)
+    assert 48 * 1024 < tpk.select_smem_bytes(1024, 8192) <= h100
+    tpk._check_smem(1024, 8192, "select_full", h100, select=True)
+    with pytest.raises(ValueError, match=r"261952 B .*Hp=3584, S=60000"):
+        tpk._check_smem(3584, 60_000, "select_full", h100, select=True)
+    with pytest.raises(ValueError, match=r"Hp=65537 slots exceed"):
+        tpk._check_smem((1 << 16) + 1, 124, "select_full", h100, select=True)
