@@ -21,13 +21,19 @@ queries). Phases, in order:
      oracle), at the 5M pin's prep shape (16, 35,552, 156) and on a ragged
      lattice (S = 300, T * S no multiple of a block, mask 1,000), also
      replayed from a CUDA graph; K5 (the table-free PRF) at Q = 6 and 96
-     and against K1's table at the same points; K3 (select_full) and K4
-     (claim_select) at Q = 6, 96 and 384 on uniform, contended,
-     budget-edge and deep rounds (more than K3's kept candidates contend
-     for one row, so its walk scans rows on; Q = 384 spans two of K3's
-     windows), also replayed from a CUDA graph, each case with the rounds
-     that took a row scan in K3's walk; K3 also at a synthetic S = 8,192
-     whose shared-memory plan passes 48 KiB (opted in, a cluster of 8);
+     and against K1's table at the same points, also replayed from a CUDA
+     graph beside an empty kernel of its Q = 6 launch shape (the launch
+     floor), and on a ragged (3, 1,001) list with half its tags at or
+     above 2^29; K3 (select_full) and K4 (claim_select), one claim pass,
+     at Q = 6, 96 and 384 on uniform, contended, budget-edge and deep
+     rounds (more than the kept candidates contend for one row, so the
+     walk scans rows on; Q = 384 spans two windows), also replayed from a
+     CUDA graph (uniform and deep), each case with the rounds that took a
+     row scan in the walk; K4 on an edge input the engines never send
+     (unreal rounds with any chunk and offset, real rounds with a chunk of
+     -1 or S, offset -1 on rows holding a few -1s, Hp % 4 = 0 and 3); K3
+     also at a synthetic S = 8,192 whose shared-memory plan passes 48 KiB
+     (opted in, a cluster of 8);
      K2 (xor_gather) in both its forms
      (chunk-major and row-split) at the prep, Q = 6 and Q = 96 shapes,
      at B = 16C - 1 and 16C (the two sides of gather_form's switch), at
@@ -38,9 +44,8 @@ queries). Phases, in order:
      on integer data and within 1e-5 (|q|^2 + |p|^2) on floats (its plain
      version is the cuBLAS form). The repair pins: K2 at k = 5 and 8
      (entries over 2 KiB) at the prep and Q = 96 shapes, and K3/K4 at
-     (P, S, Hp) = (16, 216, 14,336) (n = 7M: K4's plan takes 72,608 B of
-     shared memory a CTA, above the 48 KiB default) at Q = 6, 96 and the
-     pin's whole budget, max_query_num rounds a partition. The attic phase: one
+     (P, S, Hp) = (16, 216, 14,336) (n = 7M) at Q = 6, 96 and the pin's
+     whole budget, max_query_num rounds a partition. The attic phase: one
      call of each attic entry point with the launch counters from zero
      (each K7 kernel launched, no other kernel), then each against its
      plain version,
@@ -124,7 +129,7 @@ KERNELS = ("aes_mmo_tables", "xor_gather", "claim_select", "select_full",
            "aes_mmo_points", "l2_distance", *ATTIC)
 # the repair pins: 3,968 B entries (960 f32 || 32 u32, k = 8 rows; K2 took
 # at most 4), and 640 B entries at n = 5M (Hp = 14,336, S = 156) and 7M
-# (S = 216), where K4's shared-memory plan passes 48 KiB
+# (S = 216)
 WIDE_ENTRY_BYTES = 3968
 BIG_N, PROTOCOL_PIN_N = 5_000_000, 7_000_000
 # K7c's flat single-server layout: n = 1M entries of 640 B in one
@@ -133,6 +138,9 @@ FLAT_S, FLAT_C, FLAT_B = 492, 2048, 57_632
 # K1's ragged lattice: S > 256, T * S = 300,300 (no multiple of a block of
 # 256), a chunk mask that is no power of two
 K1_RAGGED_T, K1_RAGGED_S, K1_RAGGED_MASK = 1001, 300, 1000
+# K5's ragged list: P = 3 partitions of L = 1,001 points (no multiple of a
+# block)
+K5_RAGGED_P, K5_RAGGED_L = 3, 1001
 # K3 at a synthetic (P, S, Hp, C) = (2, 8,192, 1,024, 16) and Q = 300: the
 # found counts of S = 8,192 chunks take its shared-memory plan past 48 KiB
 K3_WIDE_P, K3_WIDE_S, K3_WIDE_HP, K3_WIDE_C, K3_WIDE_Q = 2, 8192, 1024, 16, 300
@@ -320,10 +328,68 @@ def k5_points(gen, P: int, Q: int, S: int, Hp: int, T: int):
             xs.reshape(P, 2 * Q * S).contiguous())
 
 
+def k5_floor_ms(P: int, L: int) -> float:
+    """ms a call of an empty kernel launched as K5 is for (P, L) (its grid,
+    threads and shared memory), replayed from a CUDA graph: the floor of
+    K5's replayed time at that shape."""
+    import ctypes
+
+    import torch
+
+    from pacmann_tpu_torch.utils import cuda_lib
+
+    fn = cuda_lib.function("aes_mmo", "aes_mmo_points_floor",
+                           [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def empty():
+        cuda_lib.check(fn(P, L, cuda_lib.stream_ptr(dev)),
+                       "aes_mmo_points_floor")
+    return graph_ms(empty, 50)
+
+
+def k5_ragged(gen, rk, table, S: int, chunk_mask: int) -> int:
+    """K5 on a ragged (K5_RAGGED_P, K5_RAGGED_L) list: half its tags u32
+    values at or above 2^29 (their bits above 28 leave the input), the
+    rest in [0, T), xs in [0, S); bit-equal to its plain version and, where
+    the tags lie in [0, T), to K1's table. Returns the max abs error."""
+    import torch
+
+    from pacmann_tpu_torch.ops import aes
+
+    P, L, T = K5_RAGGED_P, K5_RAGGED_L, table.shape[1]
+    rk = rk[:P].contiguous()
+    low = torch.randint(0, T, (P, L), generator=gen, device="cuda")
+    high = torch.randint(1 << 29, 1 << 32, (P, L), generator=gen,
+                         device="cuda")
+    pick = torch.rand((P, L), generator=gen, device="cuda") < 0.5
+    tags = torch.where(pick, high, low)
+    tags = torch.where(tags >= 1 << 31, tags - (1 << 32), tags).to(
+        torch.int32)
+    xs = torch.randint(0, S, (P, L), generator=gen, dtype=torch.int32,
+                       device="cuda")
+    got = aes.aes_mmo_points_cuda(rk, tags, xs, chunk_mask)
+    want = aes.prf_eval_plain(rk, tags, xs, chunk_mask)
+    in_table = (tags >= 0) & (tags < T)
+    from_table = table[torch.arange(P, device="cuda")[:, None],
+                       tags.long().clamp(0, T - 1), xs.long()]
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err == 0, f"K5 differs from its plain version on the ragged list "
+          f"(max err {err})")
+    check(bool(in_table.any()) and bool((~in_table).any())
+          and torch.equal(got[in_table], from_table[in_table]),
+          "K5 differs from K1's table on the ragged list")
+    print(f"K5 aes_mmo_points ragged ({P},{L}), {int((~in_table).sum())} "
+          "tags at or above 2^29: bit-equal to plain and, on the other "
+          f"{int(in_table.sum())}, to K1's table")
+    return err
+
+
 def compare_k5(rk, table, p, quotas, seed: int) -> dict:
     """K5 against its plain version at the main path's shapes (P = 16,
     L = 2*Q*S), every output bit-equal, and against K1's table at the same
-    (t, s) points."""
+    (t, s) points; the launch floor at the first quota; a ragged list."""
     import torch
 
     from pacmann_tpu_torch.ops import aes
@@ -354,13 +420,18 @@ def compare_k5(rk, table, p, quotas, seed: int) -> dict:
                            reps=3)
         evals = tags.numel()
         b = aes_bound(evals, 12 * evals + rk.numel())
+        floor = k5_floor_ms(P, tags.shape[1]) if Q == quotas[0] else None
         print(f"K5 aes_mmo_points Q={Q} ({P},{tags.shape[1]}): bit-equal to "
               f"plain and to K1's table; kernel {ms:.4f} ms "
               f"({evals / ms / 1e6:.2f} G evals/s; {dev_ms:.4f} ms a call "
-              f"replayed from a CUDA graph), plain {plain_ms:.3f} ms, "
+              f"replayed from a CUDA graph"
+              + ("" if floor is None else
+                 f", an empty kernel of its launch shape {floor:.4f}")
+              + f"), plain {plain_ms:.3f} ms, "
               f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         res[f"Q={Q}"] = dict(max_abs_err=err, ms=ms, graph_ms=dev_ms,
-                             plain_ms=plain_ms, **b)
+                             floor_graph_ms=floor, plain_ms=plain_ms, **b)
+    res["ragged"] = dict(max_abs_err=k5_ragged(gen, rk, table, S, C - 1))
     return res
 
 
@@ -796,10 +867,10 @@ def compare_protocol(table, p, P: int, psize: int, quotas, seed: int,
                      kinds=("uniform", "contended", "budget", "deep"),
                      plain_reps: int = 3) -> dict:
     """K3 and K4 against their plain versions, every output bit-equal,
-    with the rounds that took a row scan in K3's walk; times of the uniform
+    with the rounds that took a row scan in the walk; times of the uniform
     case (CUDA events over back-to-back calls, and replayed from a CUDA
-    graph: K4's replay only where its plan needs no opt-in above 48 KiB;
-    the plain versions' only where plain_reps > 0)."""
+    graph; the plain versions' only where plain_reps > 0) and, replayed, of
+    the deep case."""
     import torch
 
     from pacmann_tpu_torch.ops import protocol_kernels as pk
@@ -842,22 +913,26 @@ def compare_protocol(table, p, P: int, psize: int, quotas, seed: int,
                 check(least >= kept + 2 and row["rescans"] > 0,
                       f"K3 deep Q={Q}: a partition found {least} slots "
                       f"(K + 2 = {kept + 2}), {row['rescans']} row scans")
-            if kind == "uniform":
+
+            def k3():
+                return pk.select_full_cuda(*a, **kw)
+
+            def k4():
+                return pk.claim_select_cuda(*claim_args, C=p.chunk_size,
+                                            dpp=DPP)
+            if kind == "deep":
+                row.update(k3_graph_ms=graph_ms(k3, 50),
+                           k4_graph_ms=graph_ms(k4, 50))
+                times = (f"; replayed from a CUDA graph: K3 "
+                         f"{row['k3_graph_ms']:.4f} ms, K4 "
+                         f"{row['k4_graph_ms']:.4f} ms")
+            elif kind == "uniform":
                 k3_b, k4_b = protocol_bounds(a, sel_p, p.set_size,
                                              p.primary_hint_num)
                 row.update(k3_bound=k3_b, k4_bound=k4_b)
-                def k3():
-                    return pk.select_full_cuda(*a, **kw)
-
-                def k4():
-                    return pk.claim_select_cuda(*claim_args, C=p.chunk_size,
-                                                dpp=DPP)
                 row.update(
                     k3_ms=cuda_ms(k3, 50), k3_graph_ms=graph_ms(k3, 50),
-                    k4_ms=cuda_ms(k4, 50),
-                    k4_graph_ms=graph_ms(k4, 50) if pk.smem_bytes(
-                        p.primary_hint_num, p.set_size) <= 48 * 1024
-                    else None)
+                    k4_ms=cuda_ms(k4, 50), k4_graph_ms=graph_ms(k4, 50))
                 if plain_reps:
                     row.update(
                         k3_plain_ms=cuda_ms(lambda: pk.select_full_plain(
@@ -865,8 +940,6 @@ def compare_protocol(table, p, P: int, psize: int, quotas, seed: int,
                         k4_plain_ms=cuda_ms(lambda: pk.claim_select_plain(
                             *claim_args, C=p.chunk_size, dpp=DPP),
                             plain_reps))
-                k4_graph = ("" if row["k4_graph_ms"] is None else
-                            f" ({row['k4_graph_ms']:.4f} replayed)")
                 k3_plain, k4_plain = (
                     (f", plain {row['k3_plain_ms']:.3f} ms",
                      f", plain {row['k4_plain_ms']:.3f} ms") if plain_reps
@@ -875,7 +948,8 @@ def compare_protocol(table, p, P: int, psize: int, quotas, seed: int,
                          f"({row['k3_graph_ms']:.4f} replayed from a CUDA "
                          f"graph){k3_plain}, bound "
                          f"{k3_b['bound_ms']:.4f} ({k3_b['bound_by']}); K4 "
-                         f"kernel {row['k4_ms']:.4f} ms{k4_graph}{k4_plain}, "
+                         f"kernel {row['k4_ms']:.4f} ms "
+                         f"({row['k4_graph_ms']:.4f} replayed){k4_plain}, "
                          f"bound {k4_b['bound_ms']:.4f} ({k4_b['bound_by']})")
             else:
                 times = ""
@@ -889,10 +963,80 @@ def compare_protocol(table, p, P: int, psize: int, quotas, seed: int,
     return res
 
 
+def compare_k4_edge(table, p, P: int, Q: int, seed: int) -> dict:
+    """K4 on rounds the engines never send, at Hp % 4 = 0 (4-slot loads)
+    and Hp % 4 = 3 (one-slot loads): rounds that are not real with any
+    chunk (-1, S and far outside) and any int32 offset; real rounds with a
+    chunk of -1 or S, for which K4 reads nothing; real rounds asking offset
+    -1 of rows that hold it at a few slots, so that a load padded with a
+    value equal to -1 past the row would claim a slot >= Hp. Held against
+    its plain version on the same rounds with every round that is not real
+    or out of range made an unreal round on chunk 0, offset 0: by the
+    contract such a round finds nothing and claims nothing, whatever its
+    chunk and offset."""
+    import torch
+
+    from pacmann_tpu_torch.ops import protocol_kernels as pk
+    from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT as DPP
+
+    S, Hp, C = p.set_size, p.primary_hint_num, p.chunk_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32,
+                             device="cuda")
+
+    def coin(prob, *shape):
+        return torch.rand(shape, generator=gen, device="cuda") < prob
+
+    res = {}
+    for hp in (Hp - Hp % 4, Hp - Hp % 4 - 1):
+        slot_col = table[:, :hp, :].transpose(1, 2).contiguous()
+        slot_col[coin(0.0005, P, S, hp)] = -1
+        prog = torch.where(coin(0.5, P, hp), DPP, ri(0, S * C, P, hp))
+        chunk_q, off_q = ri(0, S, Q, P), ri(0, C, Q, P)
+        real_q = coin(0.8, Q, P)
+        # offset -1, on a few chunks a partition so its -1 slots run out
+        neg = coin(0.3, Q, P)
+        chunk_q[neg] = ri(0, 3, Q, P)[neg]
+        off_q[neg] = -1
+        junk = ~real_q
+        far = torch.tensor([-1, S, S + 7, -(1 << 30), 1 << 30],
+                           dtype=torch.int32, device="cuda")
+        chunk_q[junk] = far[ri(0, 5, Q, P)][junk]
+        off_q[junk] = ri(-(1 << 31), (1 << 31) - 1, Q, P)[junk]
+        out = real_q & coin(0.1, Q, P)
+        chunk_q[out] = far[ri(0, 2, Q, P)][out]
+        hit, fnd = pk.claim_select_cuda(slot_col, prog, chunk_q, off_q,
+                                        real_q, C=C, dpp=DPP)
+        live = real_q & (chunk_q >= 0) & (chunk_q < S)
+        zero = torch.zeros_like(chunk_q)
+        hit_p, fnd_p = pk.claim_select_plain(
+            slot_col, prog, torch.where(live, chunk_q, zero),
+            torch.where(live, off_q, zero), live, C=C, dpp=DPP)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(hit, hit_p), max_abs_err(fnd, fnd_p))
+        check(err == 0, f"K4 differs from its plain version on the edge "
+              f"input at Hp={hp} (max err {err})")
+        found_neg = int((fnd_p & neg & live).sum())
+        missed_neg = int((~fnd_p & neg & live).sum())
+        check(found_neg > 0 and missed_neg > 0,
+              f"K4 edge input at Hp={hp}: offset -1 found {found_neg}, "
+              f"missed {missed_neg}: the input does not test the padding")
+        print(f"K4 claim_select edge input (P, S, Hp) = ({P}, {S}, {hp}) "
+              f"Q={Q}: bit-equal to plain ({int(junk.sum())} unreal rounds, "
+              f"{int((real_q & ~live).sum())} real rounds outside [0, S), "
+              f"offset -1 found {found_neg} and missed {missed_neg} times)")
+        res[f"Hp={hp}"] = dict(k4_err=err, found_neg=found_neg,
+                               missed_neg=missed_neg)
+    return res
+
+
 def compare_k3_wide(seed: int) -> dict:
     """K3 and K4 against their plain versions at K3_WIDE_*, uniform and
-    contended: K3's plan passes the 48 KiB default, so its launch opts in,
-    on clusters of 8 CTAs over two windows of rounds."""
+    contended: their plan passes the 48 KiB default, so their launches opt
+    in, on clusters of 8 CTAs over two windows of rounds."""
     from types import SimpleNamespace
 
     import torch
@@ -901,8 +1045,8 @@ def compare_k3_wide(seed: int) -> dict:
 
     P, S, Hp, C = K3_WIDE_P, K3_WIDE_S, K3_WIDE_HP, K3_WIDE_C
     need = pk.select_smem_bytes(Hp, S)
-    check(need > 48 * 1024, f"K3 wide: plan {need} B needs no opt-in")
-    print(f"K3 wide (P, S, Hp) = ({P}, {S}, {Hp}): plan {need} B a CTA")
+    check(need > 48 * 1024, f"K3/K4 wide: plan {need} B needs no opt-in")
+    print(f"K3/K4 wide (P, S, Hp) = ({P}, {S}, {Hp}): plan {need} B a CTA")
     p = SimpleNamespace(set_size=S, primary_hint_num=Hp, chunk_size=C,
                         max_query_per_chunk=4, max_query_num=1000)
     gen = torch.Generator(device="cuda")
@@ -1644,6 +1788,7 @@ def main() -> int:
     k2 = compare_k2(engine.db, table, skip, (6, 96), args.seed + 11)
     k34 = compare_protocol(table, p, P, c.partition_size, (6, 96, 384),
                            args.seed + 13)
+    k4_edge = compare_k4_edge(table, p, P, 96, args.seed + 27)
     # the repair pins: K2 at k = 5 and 8; K3/K4 at Hp = 14,336 (n = 7M)
     k2_wide = compare_k2_wide(table, skip, p.chunk_size, args.seed + 19)
     k2_ragged = compare_k2_ragged(args.seed + 23)
@@ -1653,8 +1798,7 @@ def main() -> int:
     table7 = aes.aes_mmo_cuda(
         k1_rk, p7.primary_hint_num + p7.set_size * p7.max_query_per_chunk,
         p7.set_size, p7.chunk_mask)
-    print(f"K3/K4 pin: n={PROTOCOL_PIN_N}, shared memory a CTA: K4 "
-          f"{pk.smem_bytes(p7.primary_hint_num, p7.set_size)} B, K3 "
+    print(f"K3/K4 pin: n={PROTOCOL_PIN_N}, shared memory a CTA "
           f"{pk.select_smem_bytes(p7.primary_hint_num, p7.set_size)} B "
           f"(opt-in limit {pk.smem_limit(torch.cuda.current_device())} B); "
           f"max_query_num {p7.max_query_num}")
@@ -1734,7 +1878,7 @@ def main() -> int:
     paths[path] = measure_comm_phase(engine.db, args.seed + 60)
     launches[path] = read_counts(path, expected("pallas", True))
     # the repair pins on the engine: 3,968 B entries (k = 8) on "xla", and
-    # n = 5M (Hp = 14,336: K4 above 48 KiB) on "pallas" and "fused";
+    # n = 5M (Hp = 14,336) on "pallas" and "fused";
     # each DB freed before the next
     for label, n, entry_bytes, routes in (
             ("3968 B", N, WIDE_ENTRY_BYTES, ("xla",)),
@@ -1782,6 +1926,7 @@ def main() -> int:
     details = dict(card=card, k1=k1, k1_ragged=k1_ragged, k1_5m=k1_5m,
                    k2=k2, k2_wide=k2_wide, k2_ragged=k2_ragged, k2_5m=k2_5m,
                    k3_k4=k34, k3_k4_hp14336=k34_wide, k3_k4_wide_s=k3_wide,
+                   k4_edge=k4_edge,
                    k5=k5, k6=k6, k7=k7, paths=paths,
                    ptxas=ptxas_notes,
                    launches=launches, pir_select_ms=select_ms,
@@ -1817,7 +1962,8 @@ def main() -> int:
         entry("claim_select", "protocol.cu",
               "pacmann_tpu/ops/protocol_kernels.py:119",
               max(v["k4_err"] for v in (*k34.values(), *k34_wide.values(),
-                                        *k3_wide.values())),
+                                        *k3_wide.values(),
+                                        *k4_edge.values())),
               dict(ms=k34_q96["k4_ms"], plain_ms=k34_q96["k4_plain_ms"]),
               k34_q96["k4_bound"]),
         entry("select_full", "protocol.cu",

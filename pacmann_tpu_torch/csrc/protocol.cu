@@ -12,41 +12,40 @@
 //      point, the replacement offset at the round's own chunk, or the dummy
 //      row when the round is not served.
 //
-// K4 (claim_kernel): one CTA per partition walks the rounds in order. The
-// claimed set is one byte per slot in shared memory, beside each slot's
-// programmed chunk (-1 = unprogrammed), so a round reads only its chunk's
-// slot-column row (Hp int32, 14 KB at SIFT1M shape) from global memory. The
-// first eligible slot is a block min-reduction (warp __reduce_min_sync, then
-// one word per warp), so no atomics decide "first". Two barriers per round.
-// Bound on the H100: latency; 16 of 132 SMs are busy at SIFT1M shape.
-//
-// K3 (select_full_kernel): the rounds interact only through the claimed set.
-// A round's eligible slots (col == off and not programmed for its chunk) do
-// not depend on earlier rounds, and at most q earlier rounds can have claimed
-// one of them. So one launch runs on a cluster of G CTAs per partition (G =
-// ceil(Q / 16), at most 8) and takes the rounds in windows of kWindow, each
-// in three phases with the cluster barrier between them:
+// Both run one claim pass (claim_pass_kernel), K3 with its budgets and
+// rows, K4 with its own inputs. The rounds interact only through the
+// claimed set. A round's eligible slots (col == off and not programmed for
+// its chunk) do not depend on earlier rounds, and at most q earlier rounds
+// can have claimed one of them. So one launch runs on a cluster of G CTAs
+// per partition (G = ceil(Q / 16), at most 8) and takes the rounds in
+// windows of kWindow, each in three phases with the cluster barrier between
+// them:
 //   1. candidates, parallel over the window's rounds: a warp per round scans
 //      its row in ascending h (8 loads in flight a lane, 4 slots a load where
 //      the rows are 16-byte aligned) and keeps the first K = min(Q, 16)
 //      eligible slots in order: slots with col == off gather in a warp buffer
 //      by ballot + popc, and their program points are checked 32 at a time.
 //      The lists go as 16-bit slot indices, with each round's count, chunk,
-//      offset and hist[chunk], into the shared memory of the cluster's CTA 0
-//      (distributed shared memory);
+//      offset and (K3) hist[chunk], into the shared memory of the cluster's
+//      CTA 0 (distributed shared memory);
 //   2. the serial walk, one warp of CTA 0: round q takes the first of its
 //      candidates not in the claimed set (a bitmap of Hp bits), one lane a
 //      candidate. A round whose list is full (K) and whose K candidates are
 //      all claimed scans its row on from the K-th candidate (the row the
 //      walk scanned last from after the slot that scan took) for the first
-//      eligible slot that is not claimed: exact for any data. Then
-//      found[chunk], the group index, ok_r, ok_q and the rank are updated in
+//      eligible slot that is not claimed: exact for any data. K3 then
+//      updates found[chunk], the group index, ok_r, ok_q and the rank in
 //      round order. The claimed set, found and the rank carry over to the
 //      next window;
-//   3. the walk's (Q, P) outputs and the query rows, parallel: every CTA of
-//      the cluster writes those of its rounds from the walk's results, read
-//      from CTA 0.
-// So the shared-memory plan holds one window, whatever Q is.
+//   3. the outputs, parallel: every CTA of the cluster writes those of its
+//      rounds from the walk's results, read from CTA 0: K4 hit and found,
+//      K3 its (Q, P) outputs and the query rows.
+// So the shared-memory plan holds one window, whatever Q is, and is the same
+// for both kernels.
+// K4's inputs are the round's chunk, offset and realness as given: a round
+// that is not real, or whose chunk lies outside [0, S), reads nothing and
+// finds nothing; an offset may be any int32 (phase 1 pads its loads with
+// ~off, which never equals off).
 // Bound on the H100: latency. At SIFT1M shape a round's row has about Hp / C
 // = 7 eligible slots, so a round rarely finds its K candidates claimed;
 // phase 1 is the rows' L2 round trips, spread over P x G CTAs, and the walk
@@ -62,7 +61,7 @@ namespace cg = cooperative_groups;
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
-// K3: candidates kept per round, rounds a window, CTAs per partition at most
+// candidates kept per round, rounds a window, CTAs per partition at most
 // (the portable cluster size), row loads in flight per lane in phase 1
 constexpr int kCandidates = 16;
 constexpr int kWindow = 256;
@@ -71,12 +70,11 @@ constexpr int kScanUnroll = 8;
 // a warp's buffer of slots with col == off awaiting their program-point
 // check: fewer than 32 plus one group of kScanUnroll's loads (128)
 constexpr int kMatchBuf = 160;
-// K3 keeps slot indices in 16 bits
+// slot indices are kept in 16 bits
 constexpr int kMaxSlots = 1 << 16;
 // dynamic shared memory a CTA gets without opting in; above it each kernel
 // is opted in, up to the device's limit
-// cudaDevAttrMaxSharedMemoryPerBlockOptin (232,448 B on an H100): K4's plan
-// reaches 72 KB at Hp = 14,336 (640 B entries, n of about 4.3M to 7M)
+// cudaDevAttrMaxSharedMemoryPerBlockOptin (232,448 B on an H100)
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 struct Args {
@@ -108,22 +106,15 @@ struct Args {
   int T, R, max_q;
 };
 
-// K4's plan: programmed chunk per slot, found rounds per chunk, one word per
-// warp, claimed bytes
-static size_t smem_bytes(int Hp, int S) {
-  return static_cast<size_t>(Hp) * 4 + static_cast<size_t>(S) * 4 +
-         kWarps * 4 + static_cast<size_t>(Hp);
-}
-
 __host__ __device__ static int candidates(int Q) {
   return Q < kCandidates ? Q : kCandidates;
 }
 
-// K3's plan, the same in every CTA (CTA 0 uses all of it): per round of a
-// window a 16-byte record from phase 1 and one from the walk, kCandidates
-// 16-bit candidates; the claimed bitmap; found rounds per chunk; each warp's
-// buffer of kMatchBuf slots
-static size_t select_smem_bytes(int Hp, int S) {
+// The plan of K3 and K4, the same in every CTA (CTA 0 uses all of it): per
+// round of a window a 16-byte record from phase 1 and one from the walk,
+// kCandidates 16-bit candidates; the claimed bitmap; found rounds per chunk
+// (K3); each warp's buffer of kMatchBuf slots
+static size_t smem_plan(int Hp, int S) {
   return static_cast<size_t>(kWindow) * (32 + 2 * kCandidates) +
          static_cast<size_t>((Hp + 31) / 32) * 4 +
          static_cast<size_t>(S) * 4 + 2 * kWarps * kMatchBuf;
@@ -135,12 +126,13 @@ static size_t select_smem_bytes(int Hp, int S) {
 // w < kClockWindows holds window w's marks (0 its start, 1 and 2 around the
 // barrier after phase 1, 3 and 4 around the one after the walk, 5 the end
 // of phase 3); row kClockWindows the kernel's (0 its start, 1 and 2 around
-// the first barrier, 3 and 4 around the last).
+// the first barrier, 3 and 4 around the last). K4's launches record none.
 constexpr int kClockWindows = 32;
 __device__ unsigned long long k3_clocks[kClockWindows + 1][6];
 #define K3_MARK(w, k)                                                    \
   do {                                                                   \
-    if (p == 0 && rank == 0 && lane == 0 && (w) <= kClockWindows) {      \
+    if (kSelect && p == 0 && rank == 0 && lane == 0 &&                   \
+        (w) <= kClockWindows) {                                          \
       atomicMax(&k3_clocks[w][k],                                        \
                 static_cast<unsigned long long>(clock64()));             \
     }                                                                    \
@@ -172,61 +164,6 @@ static int cluster_size(int Q) {
 
 __device__ __forceinline__ int programmed_chunk(int v, unsigned uC, int dpp) {
   return v != dpp ? static_cast<int>(static_cast<unsigned>(v) / uC) : -1;
-}
-
-__global__ void __launch_bounds__(kThreads) claim_kernel(const Args a) {
-  extern __shared__ int32_t smem[];
-  int32_t* pc = smem;                                   // (Hp) programmed chunk
-  int32_t* found_c = pc + a.Hp;                         // (S) found rounds
-  unsigned* red = reinterpret_cast<unsigned*>(found_c + a.S);      // (kWarps)
-  uint8_t* claimed = reinterpret_cast<uint8_t*>(red + kWarps);     // (Hp)
-
-  const int p = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int Hp = a.Hp, S = a.S, C = a.C;
-  const unsigned uC = static_cast<unsigned>(C);
-  const int32_t* prog_p = a.prog + static_cast<size_t>(p) * Hp;
-  for (int h = tid; h < Hp; h += kThreads) {
-    const int v = prog_p[h];
-    pc[h] = v != a.dpp ? static_cast<int>(static_cast<unsigned>(v) / uC) : -1;
-    claimed[h] = 0;
-  }
-  for (int s = tid; s < S; s += kThreads) found_c[s] = 0;
-  __syncthreads();
-
-  for (int q = 0; q < a.Q; ++q) {
-    const size_t qp = static_cast<size_t>(q) * a.P + p;
-    const int ck = a.chunk_q[qp];
-    const int off = a.off_q[qp];
-    const bool real = a.real_q[qp] != 0;
-    // a chunk outside [0, S) is outside the contract: read nothing for it
-    const bool in_range = ck >= 0 && ck < S;
-
-    unsigned m = static_cast<unsigned>(Hp);
-    if (real && in_range) {
-      const int32_t* col = a.slot_col + (static_cast<size_t>(p) * S + ck) * Hp;
-#pragma unroll 4
-      for (int h = tid; h < Hp; h += kThreads) {
-        const bool elig = col[h] == off && pc[h] != ck && !claimed[h];
-        m = elig ? min(m, static_cast<unsigned>(h)) : m;
-      }
-    }
-    m = __reduce_min_sync(kFullMask, m);
-    if ((tid & 31) == 0) red[tid >> 5] = m;
-    __syncthreads();
-    unsigned mh = red[0];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) mh = min(mh, red[w]);
-    const bool fnd = real && mh < static_cast<unsigned>(Hp);
-    const int h_out = fnd ? static_cast<int>(mh) : 0;
-    if (tid == 0) {
-      if (fnd) claimed[mh] = 1;
-      a.hit[qp] = h_out;
-      a.found[qp] = fnd;
-    }
-    // claimed and red are settled before the next round reads them
-    __syncthreads();
-  }
 }
 
 // One warp: appends the slots buf[0, nm) (each with col == off) that are not
@@ -269,6 +206,8 @@ __device__ int collect_candidates(const int32_t* __restrict__ col,
   const unsigned lower = (1u << lane) - 1u;
   const int per_lane = vec ? 4 : 1;
   const int step = 32 * per_lane;
+  // fills what lies past the row or past a scalar load: never equal to off
+  const int pad = ~off;
   int n = 0, nm = 0;
   for (int base = start - start % per_lane; base < Hp && n < K;
        base += kScanUnroll * step) {
@@ -276,8 +215,7 @@ __device__ int collect_candidates(const int32_t* __restrict__ col,
 #pragma unroll
     for (int j = 0; j < kScanUnroll; ++j) {
       const int h = base + j * step + lane * per_lane;
-      // off >= 0: padding never matches
-      v[j] = make_int4(-1, -1, -1, -1);
+      v[j] = make_int4(pad, pad, pad, pad);
       if (h < Hp) {
         if (vec) {
           v[j] = __ldg(reinterpret_cast<const int4*>(col + h));
@@ -325,7 +263,9 @@ __device__ int collect_candidates(const int32_t* __restrict__ col,
   return n < K ? n : K;
 }
 
-__global__ void __launch_bounds__(kThreads) select_full_kernel(const Args a) {
+// The claim pass: K3 (kSelect) or K4.
+template <bool kSelect>
+__global__ void __launch_bounds__(kThreads) claim_pass_kernel(const Args a) {
   extern __shared__ int4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int G = static_cast<int>(cluster.num_blocks());
@@ -338,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) select_full_kernel(const Args a) {
   // (kWindow) from phase 1: chunk, offset, hist[chunk], count | real << 8 |
   // in range << 9
   int4* rounds = smem4;
-  // (kWindow) from the walk: hit, gc, ok_q | ok_r << 1, chunk
+  // (kWindow) from the walk: hit, gc, ok_q | ok_r << 1 | found << 2, chunk
   int4* results = rounds + kWindow;
   uint32_t* claimed = reinterpret_cast<uint32_t*>(results + kWindow);
   int32_t* found_c = reinterpret_cast<int32_t*>(claimed + words);  // (S)
@@ -356,7 +296,9 @@ __global__ void __launch_bounds__(kThreads) select_full_kernel(const Args a) {
   const int32_t* prog_p = a.prog + static_cast<size_t>(p) * Hp;
   if (rank == 0) {
     for (int i = tid; i < words; i += kThreads) claimed[i] = 0;
-    for (int s = tid; s < S; s += kThreads) found_c[s] = 0;
+    if (kSelect) {
+      for (int s = tid; s < S; s += kThreads) found_c[s] = 0;
+    }
   }
   // every CTA of the cluster runs before any writes to CTA 0's memory
   K3_MARK(kClockWindows, 1);
@@ -373,13 +315,23 @@ __global__ void __launch_bounds__(kThreads) select_full_kernel(const Args a) {
     // Round q0 + i's record and list go to slot i of CTA 0's window.
     for (int i = rank + G * warp; i < nq; i += G * kWarps) {
       const size_t qp = static_cast<size_t>(q0 + i) * a.P + p;
-      const int idx = a.idx_q[qp];
-      const bool real = idx >= 0;
-      const int u = real ? idx : 0;
-      const int ck = u / a.C, off = u % a.C;
+      int ck, off, u = 0;
+      bool real;
+      if (kSelect) {
+        const int idx = a.idx_q[qp];
+        real = idx >= 0;
+        u = real ? idx : 0;
+        ck = u / a.C;
+        off = u % a.C;
+      } else {
+        ck = a.chunk_q[qp];
+        off = a.off_q[qp];
+        real = a.real_q[qp] != 0;
+      }
       // a chunk outside [0, S) is outside the contract: read nothing for it
-      const bool in_range = ck < S;
-      const int hown = in_range ? a.hist[static_cast<size_t>(p) * S + ck] : 0;
+      const bool in_range = ck >= 0 && ck < S;
+      const int hown =
+          kSelect && in_range ? a.hist[static_cast<size_t>(p) * S + ck] : 0;
       int n = 0;
       if (real && in_range) {
         n = collect_candidates(
@@ -390,8 +342,10 @@ __global__ void __launch_bounds__(kThreads) select_full_kernel(const Args a) {
       if (lane == 0) {
         rounds0[i] = make_int4(ck, off, hown, n | (real ? 1 << 8 : 0) |
                                                   (in_range ? 1 << 9 : 0));
-        a.chunk[qp] = ck;
-        a.idxu[qp] = u;
+        if (kSelect) {
+          a.chunk[qp] = ck;
+          a.idxu[qp] = u;
+        }
       }
     }
     K3_WINDOW_MARK(q0, 1);
@@ -403,7 +357,7 @@ __global__ void __launch_bounds__(kThreads) select_full_kernel(const Args a) {
     // walk reads them only); each round's chain is then one claimed-word
     // load, a ballot, a shuffle and the claim.
     if (rank == 0 && warp == 0) {
-      const int fin = a.finished[p];
+      const int fin = kSelect ? a.finished[p] : 0;
       const int lane_k = lane < K ? lane : K - 1;
       int4 rd = rounds[0];
       int c = cand[lane_k];
@@ -417,7 +371,7 @@ __global__ void __launch_bounds__(kThreads) select_full_kernel(const Args a) {
         const uint32_t word = claimed[c >> 5];
         const bool free_slot = lane < n && !((word >> (c & 31)) & 1u);
         // found_c was last written before the previous __syncwarp
-        const int prev = in_range ? found_c[ck] : 0;
+        const int prev = kSelect && in_range ? found_c[ck] : 0;
         const unsigned m = __ballot_sync(kFullMask, free_slot);
         int h = -1;
         if (m) {
@@ -446,14 +400,18 @@ __global__ void __launch_bounds__(kThreads) select_full_kernel(const Args a) {
           scan_from = h >= 0 ? h + 1 : Hp;
         }
         const bool fnd = h >= 0;   // a kept candidate implies a real round
-        const int g = rd.z + prev - (fnd ? 0 : 1);
-        const bool okr = fnd && g < a.R;
-        const bool okq = okr && rankp < a.max_q - fin;
-        rankp += okr ? 1 : 0;
+        int flags = fnd ? 4 : 0, gc = 0;
+        if (kSelect) {
+          const int g = rd.z + prev - (fnd ? 0 : 1);
+          const bool okr = fnd && g < a.R;
+          const bool okq = okr && rankp < a.max_q - fin;
+          rankp += okr ? 1 : 0;
+          flags |= (okq ? 1 : 0) | (okr ? 2 : 0);
+          gc = min(g, a.R - 1);
+        }
         if (lane == 0) {
-          if (fnd) found_c[ck] = prev + 1;
-          results[i] = make_int4(fnd ? h : 0, min(g, a.R - 1),
-                                 (okq ? 1 : 0) | (okr ? 2 : 0), ck);
+          if (kSelect && fnd) found_c[ck] = prev + 1;
+          results[i] = make_int4(fnd ? h : 0, gc, flags, ck);
         }
         rd = rd_next;
         c = c_next;
@@ -464,7 +422,7 @@ __global__ void __launch_bounds__(kThreads) select_full_kernel(const Args a) {
     cluster.sync();
     K3_WINDOW_MARK(q0, 4);
 
-    // 3. the (Q, P) outputs of the walk and the query rows, a warp per
+    // 3. the outputs of the walk and, for K3, the query rows, a warp per
     // round, the rounds spread over the cluster. The next window's phase 1
     // writes only the records and lists, which the walk has read; its walk
     // writes the results after the barrier that ends that phase 1.
@@ -473,10 +431,15 @@ __global__ void __launch_bounds__(kThreads) select_full_kernel(const Args a) {
       const int4 r = results0[i];
       if (lane == 0) {
         a.hit[qp] = r.x;
-        a.ok_q[qp] = r.z & 1;
-        a.ok_r[qp] = (r.z >> 1) & 1;
-        a.ig[qp] = r.y;
+        if (kSelect) {
+          a.ok_q[qp] = r.z & 1;
+          a.ok_r[qp] = (r.z >> 1) & 1;
+          a.ig[qp] = r.y;
+        } else {
+          a.found[qp] = (r.z >> 2) & 1;
+        }
       }
+      if (!kSelect) continue;
       int32_t* out = a.qs + qp * S;
       if (r.z & 1) {
         // ok_q implies a found slot (0 <= chunk < S) and g < R; a negative
@@ -545,11 +508,40 @@ extern "C" int protocol_smem_limit(int device, int* bytes) {
   return smem_optin(device, bytes);
 }
 
+// Launches the claim pass on clusters of G CTAs per partition, G = 1
+// included. Hp above 2^16 (16-bit slot indices) and plans beyond the
+// device's opt-in shared memory are refused (cudaErrorInvalidValue).
+template <bool kSelect>
+static int launch_claim_pass(const Args& a, void* stream) {
+  if (a.Hp <= 0 || a.Hp > kMaxSlots || a.S <= 0 || a.C <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.P <= 0 || a.Q <= 0) return 0;
+  void (*kernel)(const Args) = claim_pass_kernel<kSelect>;
+  const size_t smem = smem_plan(a.Hp, a.S);
+  const int err = prepare_smem(kernel, smem);
+  if (err != 0) return err;
+  const int G = cluster_size(a.Q);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(a.P * G));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(G);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K4. slot_col (P, S, Hp), prog (P, Hp), chunk_q/off_q (Q, P) int32,
 // real_q (Q, P) bool -> hit (Q, P) int32, found (Q, P) bool. All device
-// buffers, contiguous. Returns the launch's cudaError_t (0 on success);
-// shapes whose plan exceeds the device's opt-in shared memory are refused
-// (cudaErrorInvalidValue).
+// buffers, contiguous. Returns the launch's cudaError_t (0 on success).
 extern "C" int claim_select(const void* slot_col, const void* prog,
                             const void* chunk_q, const void* off_q,
                             const void* real_q, void* hit, void* found, int P,
@@ -569,24 +561,14 @@ extern "C" int claim_select(const void* slot_col, const void* prog,
   a.Q = Q;
   a.C = C;
   a.dpp = dpp;
-  if (Hp <= 0 || S <= 0 || C <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = smem_bytes(Hp, S);
-  const int err = prepare_smem(claim_kernel, smem);
-  if (err != 0) return err;
-  if (P <= 0 || Q <= 0) return 0;
-  claim_kernel<<<P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_claim_pass<false>(a, stream);
 }
 
 // K3. State slot_col (P, S, Hp), prog/tag (P, Hp), table (P, T, S),
 // repl_idx (P, S, R), hist (P, S), finished (P,); idx_q (Q, P), rnd
 // (Q, P, S) -> qs (Q, P, S), hit/ig/chunk/idxu (Q, P) int32, ok_q/ok_r
 // (Q, P) bool. All int32 unless noted, device buffers, contiguous. Returns
-// the launch's cudaError_t; Hp above 2^16 (16-bit slot indices) and plans
-// beyond the device's opt-in shared memory are refused
-// (cudaErrorInvalidValue). Launched as clusters of G CTAs, G = 1 included.
+// the launch's cudaError_t.
 extern "C" int select_full(const void* slot_col, const void* prog,
                            const void* tag, const void* table,
                            const void* repl_idx, const void* hist,
@@ -621,27 +603,6 @@ extern "C" int select_full(const void* slot_col, const void* prog,
   a.C = C;
   a.max_q = max_q;
   a.dpp = dpp;
-  if (Hp <= 0 || Hp > kMaxSlots || S <= 0 || C <= 0 || R <= 0 || T <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (P <= 0 || Q <= 0) return 0;
-  const size_t smem = select_smem_bytes(Hp, S);
-  const int err = prepare_smem(select_full_kernel, smem);
-  if (err != 0) return err;
-  const int G = cluster_size(Q);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(P * G));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(G);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t launched = cudaLaunchKernelEx(&cfg, select_full_kernel, a);
-  if (launched != cudaSuccess) return static_cast<int>(launched);
-  return static_cast<int>(cudaGetLastError());
+  if (R <= 0 || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_claim_pass<true>(a, stream);
 }

@@ -15,7 +15,8 @@ Two versions of each:
     lookups on int64 tensors, the structure of the host oracle
     (ops/aes_host.py);
   - aes_mmo_cuda / aes_mmo_points_cuda: kernels K1 and K5
-    (csrc/aes_mmo.cu), T-tables in shared memory.
+    (csrc/aes_mmo.cu), one block setup and round function: 32 lane copies
+    of the T-tables Te0 and Te2 in shared memory, round keys in registers.
 prf_tables and prf_eval route a CPU tensor to the plain version and a CUDA
 tensor to the kernel; there is no fallback between them.
 """

@@ -17,18 +17,21 @@ after another, as the reference scans them. Two versions of each:
   - claim_select_plain / select_full_plain: a loop over the Q rounds of
     torch ops vectorised over the P partitions;
   - claim_select_cuda / select_full_cuda: kernels K4 and K3
-    (csrc/protocol.cu), no host sync. K4 walks the rounds with one CTA per
-    partition; K3 runs a cluster of CTAs per partition over windows of
-    SELECT_WINDOW rounds, each in three phases: each round's first K =
-    min(Q, SELECT_CANDIDATES) eligible slots, found for all the window's
-    rounds at once; the walk over the rounds in order, taking each round's
-    first unclaimed candidate (a round whose K candidates are all claimed
-    scans its row on from the K-th); the query rows.
+    (csrc/protocol.cu), no host sync. Both run one claim pass on a cluster
+    of CTAs per partition over windows of SELECT_WINDOW rounds, each in
+    three phases: each round's first K = min(Q, SELECT_CANDIDATES)
+    eligible slots, found for all the window's rounds at once; the walk
+    over the rounds in order, taking each round's first unclaimed
+    candidate (a round whose K candidates are all claimed scans its row on
+    from the K-th); the outputs (K4 hit and found, K3 also the budgets and
+    the query rows).
 claim_select and select_full route a CPU tensor to the plain version and a
 CUDA tensor to the kernel; there is no fallback between them.
 
 Offsets and program points are int32 tensors (utils/u32.py); every value
 compared is below 2^31, so they equal the JAX package's u16/u32 values.
+Kernel K4 takes any int32 offset, and reads nothing for a round that is
+not real or whose chunk lies outside [0, S).
 """
 
 from __future__ import annotations
@@ -41,8 +44,8 @@ import torch
 from pacmann_tpu_torch.utils import cuda_lib
 from pacmann_tpu_torch.utils.u32 import first_true
 
-# csrc/protocol.cu: threads per CTA; K3's candidates kept per round, rounds
-# a window, its 16-bit slot indices and each warp's buffer of slots to check
+# csrc/protocol.cu: threads per CTA; candidates kept per round, rounds a
+# window, the 16-bit slot indices and each warp's buffer of slots to check
 _THREADS = 512
 SELECT_CANDIDATES = 16
 SELECT_WINDOW = 256
@@ -50,17 +53,11 @@ MAX_SLOTS = 1 << 16
 _MATCH_BUF = 160
 
 
-def smem_bytes(Hp: int, S: int) -> int:
-    """Shared memory one CTA of K4 needs: the programmed chunk per slot,
-    found rounds per chunk, one word per warp, claimed bytes."""
-    return 4 * Hp + 4 * S + 4 * (_THREADS // 32) + Hp
-
-
 def select_smem_bytes(Hp: int, S: int) -> int:
-    """Shared memory one CTA of K3 needs, for any Q: per round of a window
-    two 16-byte records (phase 1's and the walk's) and SELECT_CANDIDATES
-    16-bit candidates, the claimed bitmap, found rounds per chunk and each
-    warp's buffer of 160 slots."""
+    """Shared memory one CTA of K3 or K4 needs, for any Q: per round of a
+    window two 16-byte records (phase 1's and the walk's) and
+    SELECT_CANDIDATES 16-bit candidates, the claimed bitmap, found rounds
+    per chunk (K3's) and each warp's buffer of 160 slots."""
     return (SELECT_WINDOW * (32 + 2 * SELECT_CANDIDATES)
             + 4 * ((Hp + 31) // 32) + 4 * S
             + 2 * (_THREADS // 32) * _MATCH_BUF)
@@ -174,14 +171,13 @@ def smem_limit(device_index: int) -> int:
     return out.value
 
 
-def _check_smem(Hp: int, S: int, what: str, limit: int,
-                select: bool = False):
-    """Raise where a CTA's plan exceeds `limit`: K4's plan, or with
-    `select` K3's (which also keeps Hp within its 16-bit slot indices)."""
-    if select and Hp > MAX_SLOTS:
+def _check_smem(Hp: int, S: int, what: str, limit: int):
+    """Raise where Hp exceeds the kernels' 16-bit slot indices or a CTA's
+    plan (select_smem_bytes, K3's and K4's) exceeds `limit`."""
+    if Hp > MAX_SLOTS:
         raise ValueError(f"{what}: Hp={Hp} slots exceed the kernel's 16-bit "
                          f"slot indices (at most {MAX_SLOTS})")
-    need = select_smem_bytes(Hp, S) if select else smem_bytes(Hp, S)
+    need = select_smem_bytes(Hp, S)
     if need > limit:
         raise ValueError(
             f"{what}: one partition needs {need} B of shared memory (Hp={Hp}, "
@@ -240,7 +236,7 @@ def select_full_cuda(slot_col, prog, tag, table, repl_idx, hist, finished,
             (P, S, Hp), (P, Hp), (P, Hp), (P, T, S), (P, S, R), (P, S),
             (P,), (Q, P), (Q, P, S))):
         cuda_lib.require_shape(t, name, shape, dev)
-    _check_smem(Hp, S, "select_full", smem_limit(dev.index), select=True)
+    _check_smem(Hp, S, "select_full", smem_limit(dev.index))
     qs = torch.empty((Q, P, S), dtype=torch.int32, device=dev)
     hit, ig, chunk, idxu = (torch.empty((Q, P), dtype=torch.int32,
                                         device=dev) for _ in range(4))

@@ -11,10 +11,16 @@ fewer shapes, or none replayed from a CUDA graph, which is the only
 device-only time of short kernels). Shapes: the SIFT1M deployment's (n = 1M
 entries of 640 B, batch 32) and the pins n = 5M (K1) and n = 7M (K3/K4 at
 Hp = 14,336); back-to-back calls (CUDA events) and calls replayed from a
-CUDA graph (device time). Every K1 and K3 result is held against its plain
-version. With --phases it then times K3's phases in this tree: protocol.cu
-built with -DK3_PHASE_CLOCKS, whose marks record the SM clock (clock64) of
-CTA 0 of partition 0 around each cluster barrier, summed over the windows.
+CUDA graph (device time); K4 also over the 7M pin's whole budget (Q =
+max_query_num), its replay wherever the tree's plan needs no opt-in above
+48 KiB; where the tree's aes_mmo.cu has one, an empty kernel of K5's Q =
+6 launch shape, replayed (the launch floor). Every K1, K3, K4 and K5
+result is held against its plain version. With --phases it then times
+K3's phases in this tree: protocol.cu built with -DK3_PHASE_CLOCKS, whose
+marks record the SM clock (clock64) of CTA 0 of partition 0 around each
+cluster barrier, summed over the windows; and K5's block setup:
+aes_mmo.cu built with -DAES_FILL_CLOCKS, whose marks record the SM clock
+of block (0, 0) after its 64 KB image and after round 1's fold.
 
     python3 scripts/kernel_ab.py --base DIR [--phases]
 
@@ -35,8 +41,9 @@ ROOT = Path(__file__).resolve().parent.parent
 PHASES = ("phase1", "sync1", "walk", "sync2", "phase3")
 
 
-def cases(cs, aes, pk, gen) -> tuple[list, list, list]:
-    """K1, K5 and K3/K4 cases: (label, arguments...) on the card."""
+def cases(cs, aes, pk, gen) -> tuple[list, list, list, list]:
+    """K1, K5, K3/K4 and K4-only cases: (label, arguments...) on the
+    card."""
     from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT as DPP
     from pacmann_tpu_torch.pir.params import (derive_batch_params,
                                               derive_piano_params)
@@ -47,7 +54,7 @@ def cases(cs, aes, pk, gen) -> tuple[list, list, list]:
                                       cs.FAIL)
 
     rk = aes.round_keys([bytes([i]) * 16 for i in range(16)]).cuda()
-    k1, k3, k5 = [], [], []
+    k1, k3, k5, k4 = [], [], [], []
     for label, n in (("1M", cs.N), ("5M", cs.BIG_N)):
         _, p = params(n)
         T = p.primary_hint_num + p.set_size * p.max_query_per_chunk
@@ -70,8 +77,18 @@ def cases(cs, aes, pk, gen) -> tuple[list, list, list]:
                                        c.partition_num, c.partition_size)
                 k3.append((f"{label} Q={Q} {kind}", a, kw,
                            pk.select_full_plain(*a, **kw)))
+        if label == "14336":
+            # the pin's whole budget in one claim: K4's inputs
+            a = cs.protocol_inputs(gen, "uniform", p.max_query_num, table, p,
+                                   c.partition_num, c.partition_size)
+            idx = a[7]
+            u = idx.clamp(min=0)
+            k4.append((f"{label} Q={p.max_query_num} uniform",
+                       (a[0], a[1], u // p.chunk_size, u % p.chunk_size,
+                        idx >= 0), p.chunk_size))
+            del a
         del table
-    return k1, k5, k3
+    return k1, k5, k3, k4
 
 
 def turn(tree: Path) -> dict:
@@ -89,7 +106,13 @@ def turn(tree: Path) -> dict:
     assert Path(pk.__file__).resolve().is_relative_to(tree.resolve())
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    k1, k5, k3 = cases(cs, aes, pk, gen)
+    k1, k5, k3, k4 = cases(cs, aes, pk, gen)
+    # the base tree's K4 plan may need an opt-in above 48 KiB, where a CUDA
+    # graph cannot be captured around its first launch
+    k4_plan = getattr(pk, "smem_bytes", None)
+
+    def k4_replays(Hp, S):
+        return k4_plan is None or k4_plan(Hp, S) <= 48 * 1024
     res = {}
     for label, rk, T, S, mask in k1:
         got = aes.aes_mmo_cuda(rk, T, S, mask)
@@ -102,16 +125,28 @@ def turn(tree: Path) -> dict:
         res[f"K1 {label}"] = (cs.cuda_ms(k1_call, 10),
                               cs.graph_ms(k1_call, 5))
     for label, rk, tags, xs, mask in k5:
+        cs.check(torch.equal(aes.aes_mmo_points_cuda(rk, tags, xs, mask),
+                             aes.prf_eval_plain(rk, tags, xs, mask)),
+                 f"{tree}: K5 {label} differs from its plain version")
+
         def k5_call():
             return aes.aes_mmo_points_cuda(rk, tags, xs, mask)
         res[f"K5 {label}"] = (cs.cuda_ms(k5_call, 50),
                               cs.graph_ms(k5_call, 50))
+    try:
+        res["K5 floor Q=6"] = (None, cs.k5_floor_ms(*k5[0][2].shape))
+    except AttributeError:             # a tree without the empty kernel
+        pass
     for label, a, kw, (sel_p, qs_p) in k3:
         sel, qs = pk.select_full_cuda(*a, **kw)
         cs.check(torch.equal(qs, qs_p) and all(
             torch.equal(x, y) for x, y in zip(sel, sel_p)),
             f"{tree}: K3 {label} differs from its plain version")
         claim = (a[0], a[1], sel_p[4], sel_p[5] % kw["C"], a[7] >= 0)
+        hit, fnd = pk.claim_select_cuda(*claim, C=kw["C"], dpp=DPP)
+        hit_p, fnd_p = pk.claim_select_plain(*claim, C=kw["C"], dpp=DPP)
+        cs.check(torch.equal(hit, hit_p) and torch.equal(fnd, fnd_p),
+                 f"{tree}: K4 {label} differs from its plain version")
 
         def k3_call():
             return pk.select_full_cuda(*a, **kw)
@@ -120,16 +155,27 @@ def turn(tree: Path) -> dict:
             return pk.claim_select_cuda(*claim, C=kw["C"], dpp=DPP)
         res[f"K3 {label}"] = (cs.cuda_ms(k3_call, 50),
                               cs.graph_ms(k3_call, 50))
-        # K4's replay only where its plan needs no opt-in above 48 KiB
         res[f"K4 {label}"] = (cs.cuda_ms(k4_call, 50), cs.graph_ms(
-            k4_call, 50) if pk.smem_bytes(kw["Hp"], kw["S"]) <= 48 * 1024
-            else None)
+            k4_call, 50) if k4_replays(kw["Hp"], kw["S"]) else None)
+    for label, claim, C in k4:
+        hit_p, fnd_p = pk.claim_select_plain(*claim, C=C, dpp=DPP)
+        hit, fnd = pk.claim_select_cuda(*claim, C=C, dpp=DPP)
+        cs.check(torch.equal(hit, hit_p) and torch.equal(fnd, fnd_p),
+                 f"{tree}: K4 {label} differs from its plain version")
+
+        def k4_call():
+            return pk.claim_select_cuda(*claim, C=C, dpp=DPP)
+        Hp, S = claim[0].shape[2], claim[0].shape[1]
+        res[f"K4 {label}"] = (cs.cuda_ms(k4_call, 10), cs.graph_ms(
+            k4_call, 10) if k4_replays(Hp, S) else None)
     return res
 
 
 def phases() -> dict:
     """K3's SM clocks per phase at each case, from this tree's protocol.cu
-    built with -DK3_PHASE_CLOCKS and called through its C entry point."""
+    built with -DK3_PHASE_CLOCKS and called through its C entry point; then
+    K5's block setup at each K5 case, from aes_mmo.cu built with
+    -DAES_FILL_CLOCKS."""
     sys.path[:0] = [str(ROOT)]
     import torch
 
@@ -151,7 +197,8 @@ def phases() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     res = {}
-    for label, a, kw, (sel_p, qs_p) in cases(cs, aes, pk, gen)[2]:
+    _, k5, k3, _ = cases(cs, aes, pk, gen)
+    for label, a, kw, (sel_p, qs_p) in k3:
         Q, P = a[7].shape
         S = kw["S"]
         qs = torch.empty((Q, P, S), dtype=torch.int32, device="cuda")
@@ -187,6 +234,40 @@ def phases() -> dict:
                       last_sync=k[4] - k[3], total=k[4] - k[0])
         res[label] = clocks
         print(f"K3 phases {label}: SM clocks {clocks}", flush=True)
+
+    so = cuda_lib.BUILD / "libaes_mmo_clocks.so"
+    subprocess.run([nvcc, *cuda_lib.NVCC_FLAGS, "-DAES_FILL_CLOCKS", "-o",
+                    str(so), str(cuda_lib.CSRC / "aes_mmo.cu")], check=True)
+    lib = ctypes.CDLL(str(so.resolve()))
+    lib.aes_mmo_points.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 2 + [ctypes.c_uint, ctypes.c_void_p]
+    lib.aes_clocks_zero.argtypes = []
+    lib.aes_clocks_read.argtypes = [ctypes.c_void_p]
+    for label, rk, tags, xs, mask in k5:
+        P, L = tags.shape
+        out = torch.empty_like(tags)
+        words = rk.reshape(P, 44 * 4).view(torch.int32)
+
+        def call():
+            cuda_lib.check(lib.aes_mmo_points(
+                words.data_ptr(), tags.data_ptr(), xs.data_ptr(),
+                out.data_ptr(), P, L, mask, cuda_lib.stream_ptr(out.device)),
+                "aes_mmo_points")
+        call()
+        cuda_lib.check(lib.aes_clocks_zero(), "aes_clocks_zero")
+        call()
+        torch.cuda.synchronize()
+        cs.check(torch.equal(out, aes.prf_eval_plain(rk, tags, xs, mask)),
+                 f"K5 {label} (setup clocks) differs from its plain version")
+        buf = (ctypes.c_ulonglong * 4)()
+        cuda_lib.check(lib.aes_clocks_read(ctypes.addressof(buf)),
+                       "aes_clocks_read")
+        cs.check(all(buf[k] for k in range(4)), f"K5 {label}: a mark is 0")
+        clocks = dict(image=buf[1] - buf[0], fold=buf[2] - buf[1],
+                      evals=buf[3] - buf[2], total=buf[3] - buf[0])
+        res[f"K5 {label}"] = clocks
+        print(f"K5 setup {label}: SM clocks of block (0, 0) {clocks}",
+              flush=True)
     return res
 
 

@@ -271,6 +271,125 @@ def test_k3_phase_model_matches_jax_kernel_and_claim_twin(kind, K, window):
     assert int(np.asarray(n_found).sum(axis=0).min()) > K + 2
 
 
+def _k4_model(slot_col, prog, chunk_q, off_q, real_q, *, C, dpp, K, window):
+    """numpy model of kernel K4 (csrc/protocol.cu's claim pass, without
+    K3's budgets and rows), window by window of `window` rounds: each
+    round's first K eligible slots, found without the other rounds (none
+    for a round that is not real or whose chunk lies outside [0, S)); then
+    the walk in round order, taking a round's first unclaimed candidate
+    and, when all K of a full list are claimed, the first eligible slot
+    after the K-th that is not claimed. The claimed set carries over from
+    window to window. Returns (hit, found) as claim_select."""
+    Q, P = chunk_q.shape
+    S, Hp = slot_col.shape[1:]
+    hit = np.zeros((Q, P), np.int64)
+    found = np.zeros((Q, P), bool)
+    for p in range(P):
+        pc = np.where(prog[p] != dpp, prog[p].astype(np.int64) // C, -1)
+
+        def eligible(ck, off, start, claimed):
+            e = ((slot_col[p, ck, start:].astype(np.int64) == off)
+                 & (pc[start:] != ck))
+            if claimed is not None:
+                e &= ~claimed[start:]
+            return start + np.flatnonzero(e)
+
+        claimed = np.zeros(Hp, bool)
+        for q0 in range(0, Q, window):
+            rounds = []
+            for q in range(q0, min(Q, q0 + window)):    # 1. candidates
+                ck, off = int(chunk_q[q, p]), int(off_q[q, p])
+                live = bool(real_q[q, p]) and 0 <= ck < S
+                rounds.append((q, ck, off, eligible(ck, off, 0, None)[:K]
+                               if live else np.zeros(0, np.int64)))
+            for q, ck, off, cands in rounds:            # 2. the walk
+                free = cands[~claimed[cands]]
+                h = int(free[0]) if free.size else -1
+                if h < 0 and cands.size == K:
+                    rest = eligible(ck, off, int(cands[-1]) + 1, claimed)
+                    h = int(rest[0]) if rest.size else -1
+                if h >= 0:                              # 3. the outputs
+                    claimed[h] = True
+                    hit[q, p], found[q, p] = h, True
+    return hit, found
+
+
+def _k4_case(rng, kind, Q, P, S, Hp, C):
+    """K4's rounds: "contended" (every round of a partition asks one
+    (chunk, offset) of a row with ~15 eligible slots); "deep" (three pairs
+    alternating, their rows 3 % denser); "edge" (rounds the engines never
+    send: offset -1 on rows holding it at a few slots, unreal rounds with
+    any chunk and offset, real rounds with a chunk of -1 or S)."""
+    slot_col, prog, chunk_q, off_q, real_q = _claim_case(
+        rng, Q, P, S, Hp, C, contended=kind != "edge")
+    slot_col = slot_col.astype(np.int32)
+    off_q = off_q.astype(np.int32)
+    if kind == "deep":
+        pairs = [(int(chunk_q[0, 0]), int(off_q[0, 0])),
+                 (int(chunk_q[0, 0]), (int(off_q[0, 0]) + 1) % C),
+                 ((int(chunk_q[0, 0]) + 3) % S, int(off_q[0, 0]))]
+        for ck, off in pairs:
+            dense = rng.random((P, Hp)) < 0.03
+            slot_col[:, ck][dense] = off
+            prog[dense] = DPP
+        at = [q * 7 // 3 % len(pairs) for q in range(Q)]
+        chunk_q[:] = np.array([pairs[i][0] for i in at])[:, None]
+        off_q[:] = np.array([pairs[i][1] for i in at])[:, None]
+    elif kind == "edge":
+        slot_col[rng.random((P, S, Hp)) < 0.005] = -1
+        neg = rng.random((Q, P)) < 0.4
+        chunk_q[neg] = rng.integers(0, 2, size=(Q, P))[neg]
+        off_q[neg] = -1
+        junk = ~real_q
+        chunk_q[junk] = rng.choice([-1, S, S + 7, -(1 << 30), 1 << 30],
+                                   size=(Q, P))[junk]
+        off_q[junk] = rng.integers(-(1 << 31), 1 << 31, size=(Q, P),
+                                   dtype=np.int64)[junk]
+        out = real_q & (rng.random((Q, P)) < 0.1)
+        chunk_q[out] = rng.choice([-1, S], size=(Q, P))[out]
+    return slot_col, prog, chunk_q, off_q, real_q
+
+
+@pytest.mark.parametrize("K,window", [(2, 5), (4, 7)])
+@pytest.mark.parametrize("kind", ["contended", "deep", "edge"])
+def test_k4_claim_pass_model_matches_jax_kernel_and_twin(kind, K, window):
+    """K4's windowed claim pass reaches the serial claim's result where more
+    rounds contend for one row than K keeps, so rounds scan their row on
+    (24 rounds in windows of 5 or 7), and on the edge input (Hp % 4 = 3).
+    The JAX kernel (interpreted), its numpy twin and the port's plain
+    version get the edge rounds that are not real or out of range as unreal
+    rounds on chunk 0, offset 0: by the contract such a round finds nothing
+    and claims nothing, whatever its chunk and offset."""
+    Q, P, S, C = 24, 3, 8, 32
+    Hp = 483 if kind == "edge" else 480
+    rng = np.random.default_rng(70 + K + 7 * ["contended", "deep",
+                                              "edge"].index(kind))
+    slot_col, prog, chunk_q, off_q, real_q = _k4_case(rng, kind, Q, P, S, Hp,
+                                                      C)
+    hit, found = _k4_model(slot_col, prog, chunk_q, off_q, real_q, C=C,
+                           dpp=DPP, K=K, window=window)
+    live = real_q & (chunk_q >= 0) & (chunk_q < S)
+    safe = (np.where(live, chunk_q, 0).astype(np.int32),
+            np.where(live, off_q, 0).astype(np.int32), live)
+    j_hit, j_found = jpk.claim_select(
+        jnp.asarray(slot_col), jnp.asarray(prog), *map(jnp.asarray, safe),
+        C=C, dpp=DPP)
+    n_hit, n_found = jpk.claim_select_np(slot_col, prog, *safe, C=C, dpp=DPP)
+    t_hit, t_found = tpk.claim_select_plain(
+        _t(slot_col), _t(prog), *map(_t, safe), C=C, dpp=DPP)
+    for want_hit, want_found in ((j_hit, j_found), (n_hit, n_found),
+                                 (t_hit.numpy(), t_found.numpy())):
+        assert np.array_equal(found, np.asarray(want_found))
+        assert np.array_equal(hit, np.asarray(want_hit))
+    if kind == "edge":
+        neg = live & (off_q == -1)
+        assert (found & neg).any() and (~found & neg).any()
+        assert not found[real_q & ~live].any()
+    else:
+        # more rounds than K found a slot of one row: some scanned it on
+        assert int(found.sum(axis=0).min()) > K + 2
+
+
 def _engine_pair(route, n=2048, seed=0, prep_seed=7):
     rng = np.random.default_rng(seed)
     raw = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32)
@@ -415,30 +534,30 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
 
 
 def test_shared_memory_plan_is_refused_beyond_the_limit():
-    """The kernels keep one partition's claimed set and programmed chunks
-    in shared memory, opted in up to the card's limit (232,448 B on an
-    H100): the SIFT1M shape and Hp = 14,336 at S = 216 (640 B entries at
-    n = 7M, 72,608 B) fit; a plan beyond the limit raises before any
-    launch, naming Hp, S and the bytes."""
+    """K3 and K4 share one plan (select_smem_bytes): one window of rounds
+    (two 16-byte records and 16 16-bit candidates a round), the claimed
+    bitmap and found counts, so Q does not enter it. The SIFT1M shape, the
+    5M and 7M pins' Hp = 14,336 at S = 156 and 216 (whose whole budgets,
+    max_query_num 7,072 and 8,591 a partition, one call may take) and Hp =
+    2^16 fit under the default 48 KiB; S = 8,192 takes it past 48 KiB,
+    opted in up to the card's limit (232,448 B on an H100); a plan beyond
+    the limit, or Hp past the 16-bit slot indices, raises before any
+    launch, naming Hp, S and the bytes. Every shape K4's own plan took
+    before (up to Hp of about 46,400 at S = 124) still fits."""
     h100 = 232_448
-    for Hp, S in ((3584, 124), (14_336, 216)):
-        tpk._check_smem(Hp, S, "claim_select", h100)
-    assert tpk.smem_bytes(14_336, 216) == 72_608 > 48 * 1024
-    with pytest.raises(ValueError, match=r"235560 B .*Hp=47000, S=124"):
-        tpk._check_smem(47_000, 124, "select_full", h100)
-    # K3's plan holds one window of rounds (two 16-byte records and 16
-    # 16-bit candidates a round), the claimed bitmap and found counts, so Q
-    # does not enter it: the 5M and 7M pins' whole budget (max_query_num
-    # 7,072 and 8,591 a partition) fits under the default 48 KiB, as
-    # does Hp = 2^16; S = 8,192 takes it past 48 KiB (opted in); a plan
-    # beyond the limit, or Hp past the 16-bit slot indices, raises
-    for Hp, S in ((3584, 124), (14_336, 156), (14_336, 216), (1 << 16, 216)):
-        tpk._check_smem(Hp, S, "select_full", 48 * 1024, select=True)
+    for what in ("claim_select", "select_full"):
+        for Hp, S in ((3584, 124), (14_336, 156), (14_336, 216),
+                      (1 << 16, 216)):
+            tpk._check_smem(Hp, S, what, 48 * 1024)
+        tpk._check_smem(46_400, 124, what, h100)
+        tpk._check_smem(1024, 8192, what, h100)
+        with pytest.raises(ValueError,
+                           match=rf"{what}: .*261952 B .*Hp=3584, S=60000"):
+            tpk._check_smem(3584, 60_000, what, h100)
+        with pytest.raises(ValueError, match=r"Hp=65537 slots exceed"):
+            tpk._check_smem((1 << 16) + 1, 124, what, h100)
     assert tpk.select_smem_bytes(3584, 124) == (
         256 * 64 + 112 * 4 + 124 * 4 + 2 * 16 * 160)
+    assert tpk.select_smem_bytes(14_336, 216) <= 48 * 1024
     assert 48 * 1024 < tpk.select_smem_bytes(1024, 8192) <= h100
-    tpk._check_smem(1024, 8192, "select_full", h100, select=True)
-    with pytest.raises(ValueError, match=r"261952 B .*Hp=3584, S=60000"):
-        tpk._check_smem(3584, 60_000, "select_full", h100, select=True)
-    with pytest.raises(ValueError, match=r"Hp=65537 slots exceed"):
-        tpk._check_smem((1 << 16) + 1, 124, "select_full", h100, select=True)
+    assert not hasattr(tpk, "smem_bytes")

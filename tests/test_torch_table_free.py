@@ -109,6 +109,61 @@ def test_prf_eval_plain_full_u32_inputs(monkeypatch):
     assert np.array_equal(got.numpy().view(np.uint32), want)
 
 
+@pytest.mark.parametrize("L", [1, 511, 513, 1488])
+def test_prf_eval_plain_matches_jax_pallas_at_ragged_lengths(L, monkeypatch):
+    """K5's contract at ragged list lengths (P = 3; 1,488 is a partition's
+    list at Q = 6): the plain version equals the JAX package's
+    prf_eval_fused_pallas, run as that package's CPU tests run it (its
+    kernel body swapped for the XLA twin of the circuit; the interpreted
+    kernel takes minutes to compile), and the host AES oracle; half the
+    tags at or above 2^29, whose bits above 28 drop out."""
+    import jax.numpy as jnp2
+
+    from pacmann_tpu.ops import aes_pallas
+
+    def twin_blocks(m16, s0, *, ws, interpret):
+        P, _, _, Ls, _ = s0.shape
+        outs = []
+        for p in range(P):
+            blocks = []
+            for ib in range(Ls // ws):
+                planes = [s0[p, b, :, ib * ws:(ib + 1) * ws]
+                          for b in range(8)]
+                o = aes_pallas._mmo_low32_planes(
+                    planes, lambda r, b: m16[p, r, b],
+                    aes_pallas._perm_take)
+                blocks.append(jnp2.stack(o))
+            outs.append(jnp2.concatenate(blocks, axis=2))
+        return jnp2.stack(outs)
+
+    monkeypatch.setattr(aes_pallas, "_aes_mmo_low32_blocks_perp",
+                        twin_blocks)
+    rng = np.random.default_rng(43 + L)
+    P, cm = 3, 0x1FF
+    keys = [rng.bytes(16) for _ in range(P)]
+    tags = rng.integers(0, 12_512, size=(P, L)).astype(np.uint32)
+    high = rng.random((P, L)) < 0.5
+    tags[high] = rng.integers(1 << 29, 1 << 32, size=(P, L),
+                              dtype=np.uint64)[high].astype(np.uint32)
+    xs = rng.integers(0, 124, size=(P, L)).astype(np.uint32)
+    got = aes.prf_eval_plain(aes.round_keys(keys),
+                             torch.from_numpy(tags.view(np.int32)),
+                             torch.from_numpy(xs.view(np.int32)), cm)
+    got = got.numpy().view(np.uint32)
+    masks = jnp.asarray(np.stack([jax_aes.expand_key_planes(k)
+                                  for k in keys]))
+    with jax.disable_jit():       # op by op: no compile of the circuit
+        want = np.asarray(aes_pallas.prf_eval_fused_pallas(
+            masks, jnp.asarray(tags), jnp.asarray(xs), cm))
+    assert np.array_equal(got, want)
+    host = np.stack([
+        (aes_host.prf_eval_u64(aes_host.expand_key(k),
+                               tags[p].astype(np.uint64),
+                               xs[p].astype(np.uint64))
+         & np.uint64(cm)).astype(np.uint32) for p, k in enumerate(keys)])
+    assert np.array_equal(got, host)
+
+
 def test_prf_eval_routes_cpu_to_plain(monkeypatch):
     """A CPU tensor never reaches cuda_lib from prf_eval; the kernel
     wrapper refuses it and counts no launch."""
