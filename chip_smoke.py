@@ -53,7 +53,11 @@ queries). Phases, in order:
      K7a (xor_hintgen_mm_s8p, on to_plane_major_s8 of the DB, sc = 1 and
      4) on the engine's DB with K1's table and the skip mask; K7c
      (xor_scan_pallas) on the flat single-server layout of 1M x 640 B
-     (C = 2,048, S = 492, B = 57,632, skip 25 %); K7d (refresh_parity) at
+     (C = 2,048, S = 492, B = 57,632, skip 25 %); K7a and K7c in both
+     forms (staged and row), beside the staged form's shared-memory floor,
+     also K7a at k = 5, K7c at a ragged (1,000, 301, 9,001) and at B =
+     2,000 (the row form's side of the rule), and both on offsets outside
+     [0, C) that no skip covers; K7d (refresh_parity) at
      P = 16, Hp = 3,584, Ep = 256 for Q = 6, 96 and repeated hits. Then
      the CUDA engine +
      fused search against the same code on the CPU (plain versions) at a
@@ -646,6 +650,89 @@ def refresh_bound(ppar, new_par, hit, ok) -> dict:
                  + hit.numel() * 5 + P * Hp * Ep * 4)
 
 
+# the staged forms' launch shapes (csrc/xor_gather.cu: 512 threads, 20
+# hints a thread; K7a 8 lanes a hint over 4k slices of 128 B, K7c 2 lanes
+# over 16k slices of 32 B) for their shared-memory floors
+STAGED_THREADS, STAGED_SLOTS = 512, 20
+SMEM_WAVEFRONTS_PER_S = SMEM_LOOKUPS_PER_S / 32   # 128 bytes a wavefront
+
+
+def k7a_floor(P: int, B: int, S: int, C: int, k: int) -> dict:
+    """K7a's staged form in shared-memory wavefronts, one an SM a clock:
+    a (hint, chunk, slice) gather reads its 128-byte row in one conflict-
+    free wavefront (a skip reads the zero row), and every CTA stores each
+    chunk's C rows of 128 B (C wavefronts)."""
+    hints = STAGED_SLOTS * STAGED_THREADS // 8
+    ctas = 4 * k * -(-B // hints) * P
+    gathers, fills = P * B * S * 4 * k, ctas * S * C
+    return dict(floor_ms=(gathers + fills) / SMEM_WAVEFRONTS_PER_S * 1e3,
+                floor_gather_wavefronts=gathers,
+                floor_fill_wavefronts=fills)
+
+
+def k7c_floor(off, skip, C: int, k: int) -> dict:
+    """K7c's staged form in shared-memory wavefronts: each chunk, a
+    quarter-warp reads 4 consecutive hints' 32-byte rows (a skip or an
+    offset outside [0, C) reads the zero row C), one wavefront for each row
+    of the most crowded 128-byte bank window (row r in window r % 4; equal
+    rows are one broadcast), counted on this input, per slice; every CTA
+    stores each chunk's C rows of 32 B and its hints' 16-bit indices."""
+    import torch
+
+    B, S = off.shape
+    rows = torch.where(skip | (off < 0) | (off >= C), C, off)
+    pad = -B % 4
+    rows = torch.cat([rows, rows[-1:].expand(pad, S)]) if pad else rows
+    quad = rows.reshape(-1, 4, S).sort(dim=1).values
+    first = torch.ones_like(quad, dtype=torch.bool)
+    first[:, 1:] = quad[:, 1:] != quad[:, :-1]      # one read a distinct row
+    per_phase = torch.stack([((quad % 4 == w) & first).sum(dim=1)
+                             for w in range(4)]).amax(dim=0)   # (B/4, S)
+    gathers = int(per_phase.sum()) * 16 * k
+    hints = STAGED_SLOTS * STAGED_THREADS // 2
+    blocks = -(-B // hints)
+    hb = -(-B // blocks)
+    hb = -(-hb // 8) * 8                            # rounded up to 8
+    fills = blocks * 16 * k * S * (C * 32 + hb * 2) / 128
+    return dict(floor_ms=(gathers + fills) / SMEM_WAVEFRONTS_PER_S * 1e3,
+                floor_gather_wavefronts=gathers,
+                floor_fill_wavefronts=fills)
+
+
+def k7_forms(label: str, fn, plain, picked: str, reps: int,
+             plain_reps: int, b: dict, floor: dict | None = None) -> dict:
+    """Both forms of K7a or K7c (fn(form=...)) against the plain version on
+    one input, bit-equal, each timed with CUDA events beside the bound (and
+    the staged form's shared-memory floor). `ms` is the time of the form
+    the entry point picks (`picked`)."""
+    import torch
+
+    want = plain()
+    err = 0
+    for f in ("staged", "row"):
+        got = fn(form=f)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        check(e == 0, f"{label}'s {f} form differs from its plain version "
+              f"(max err {e})")
+        err = max(err, e)
+        del got
+    del want
+    times = {f: cuda_ms(lambda f=f: fn(form=f), reps) for f in ("staged",
+                                                                "row")}
+    plain_ms = cuda_ms(plain, plain_reps) if plain_reps else None
+    floor = floor or {}
+    print(f"{label}: both forms bit-equal to plain; picks {picked}: "
+          f"staged {times['staged']:.4f} ms / row {times['row']:.4f} ms, "
+          + (f"plain {plain_ms:.3f} ms, " if plain_ms else "")
+          + f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
+          + (f", shared-memory floor {floor['floor_ms']:.4f} ms"
+             if floor else ""))
+    return dict(max_abs_err=err, form=picked, ms=times[picked],
+                staged_ms=times["staged"], row_ms=times["row"],
+                plain_ms=plain_ms, **floor, **b)
+
+
 def attic_phase(db4, table, skip, seed: int, reset,
                 counted) -> tuple[dict, dict]:
     """The attic's four kernels at the main deployment's shapes. First one
@@ -657,12 +744,19 @@ def attic_phase(db4, table, skip, seed: int, reset,
       - K7b (xor_hintgen_pallas) on the engine's DB with K1's table and
         the skip mask, the input compare_k2 gives K2;
       - K7a (xor_hintgen_mm_s8p) on to_plane_major_s8 of that DB, same
-        table and mask (timed: the kernel on the folded offsets);
+        table and mask (timed: the kernel on the folded offsets), in both
+        forms (plane_form picks "staged"); also on a random DB of k = 5
+        and on offsets outside [0, C) that no skip covers (they read
+        nothing, as a skip);
       - K7c (xor_scan_pallas) on a random flat DB of the single-server
-        layout (FLAT_*), offsets uniform in [0, C), skip at 25 %;
+        layout (FLAT_*), offsets uniform in [0, C), skip at 25 %, in both
+        forms (flat_form picks "staged"); also at a ragged (C, S, B) =
+        (1,000, 301, 9,001) and at B = 2,000 (flat_form picks "row"; the
+        staged form forced), and with offsets outside [0, C) not skipped;
       - K7d (refresh_parity) on refresh_cases at P = 16, Hp = 3,584,
         Ep = 256; the caller's ppar unchanged.
-    Returns (results, launches)."""
+    K7a's and K7c's staged forms print their shared-memory floors beside
+    their bounds. Returns (results, launches)."""
     import torch
 
     from pacmann_tpu_torch.ops import attic
@@ -718,29 +812,104 @@ def attic_phase(db4, table, skip, seed: int, reset,
                db4, table, skip, k), reps=5),
            cuda_ms(lambda: attic.xor_hintgen_pallas_plain(
                db4, table, skip, k), reps=2), b, f"; {rows} distinct entries")
-    # K7a: the same function on the byte planes
+    # K7a: the same function on the byte planes, both forms
     off = torch.where(skip, C, table).contiguous()
     want = want.reshape(P, -1, k * 128)
     check(torch.equal(attic.xor_hintgen_mm_s8p_plain(dbp, off), want),
           "K7a's plain version differs from K7b's")
-    b, _ = gather_bound(off, None, C, k)
-    report("K7a", f"xor_hintgen_mm_s8p {tuple(table.shape)} sc=1,4",
-           [outs["K7a sc=1"], outs["K7a sc=4"]], want,
-           cuda_ms(lambda: attic.xor_hintgen_mm_s8p_cuda(dbp, off), reps=5),
-           cuda_ms(lambda: attic.xor_hintgen_mm_s8p_plain(dbp, off), reps=1),
-           b)
-    del dbp, off, want
-    # K7c
-    want = attic.xor_scan_pallas_plain(flat, f_off, f_skip, k)
+    for sc in (1, 4):
+        e = max_abs_err(outs[f"K7a sc={sc}"], want)
+        check(e == 0, f"K7a's entry point (sc={sc}) differs from its plain "
+              f"version (max err {e})")
+    del want
+    T = table.shape[1]
+    picked = attic.plane_form(P, T, S, C, k)
+    check(picked == "staged", f"plane_form picks {picked!r} at the main shape")
+    res["K7a"] = k7_forms(
+        f"K7a xor_hintgen_mm_s8p {tuple(table.shape)} sc=1,4",
+        lambda form: attic.xor_hintgen_mm_s8p_cuda(dbp, off, form=form),
+        lambda: attic.xor_hintgen_mm_s8p_plain(dbp, off), picked, reps=5,
+        plain_reps=1, b=gather_bound(off, None, C, k)[0],
+        floor=k7a_floor(P, T, S, C, k))
+    # K7a's edge: offsets outside [0, C) at unskipped positions read nothing
+    edge = off.clone()
+    edge[:, ::7, ::5] = C + 3
+    edge[:, 1::11, 2::3] = -2
+    edge[:, 5, :] = 65536 + 7
+    res["K7a edge"] = k7_forms(
+        "K7a edge (offsets outside [0, C), not skipped)",
+        lambda form: attic.xor_hintgen_mm_s8p_cuda(dbp, edge, form=form),
+        lambda: attic.xor_hintgen_mm_s8p_plain(dbp, edge), picked, reps=2,
+        plain_reps=0, b=gather_bound(edge, None, C, k)[0])
+    del dbp, edge
+    torch.cuda.empty_cache()
+    # K7a at k = 5 (entries over 2 KiB) on a random DB of the same geometry
+    db5 = torch.empty((S, P, C * 5, 128), dtype=torch.int32,
+                      device="cuda").random_(-2**31, 2**31, generator=gen)
+    dbp5 = attic.to_plane_major_s8(db5, 5)
+    del db5
+    res["K7a k=5"] = k7_forms(
+        f"K7a k=5 {tuple(table.shape)}",
+        lambda form: attic.xor_hintgen_mm_s8p_cuda(dbp5, off, form=form),
+        lambda: attic.xor_hintgen_mm_s8p_plain(dbp5, off),
+        attic.plane_form(P, T, S, C, 5), reps=3, plain_reps=1,
+        b=gather_bound(off, None, C, 5)[0], floor=k7a_floor(P, T, S, C, 5))
+    del dbp5, off
+    torch.cuda.empty_cache()
+    # K7c at the flat layout, both forms; the entry point's output too
+    picked = attic.flat_form(FLAT_B, FLAT_S, FLAT_C, k)
+    check(picked == "staged", f"flat_form picks {picked!r} at the main shape")
+    e = max_abs_err(outs["K7c"], attic.xor_scan_pallas_plain(flat, f_off,
+                                                             f_skip, k))
+    check(e == 0, f"K7c's entry point differs from its plain version ({e})")
     b, rows = gather_bound(f_off[None], f_skip[None], FLAT_C, k)
-    report("K7c", f"xor_scan_pallas ({FLAT_B}, {FLAT_S}) C={FLAT_C}",
-           [outs["K7c"]], want,
-           cuda_ms(lambda: attic.xor_scan_pallas_cuda(flat, f_off, f_skip, k),
-                   reps=5),
-           cuda_ms(lambda: attic.xor_scan_pallas_plain(flat, f_off, f_skip,
-                                                       k), reps=1),
-           b, f"; {rows} distinct entries")
-    del flat, f_off, f_skip, want
+    res["K7c"] = k7_forms(
+        f"K7c xor_scan_pallas ({FLAT_B}, {FLAT_S}) C={FLAT_C} "
+        f"({rows} distinct entries)",
+        lambda form: attic.xor_scan_pallas_cuda(flat, f_off, f_skip, k,
+                                                form=form),
+        lambda: attic.xor_scan_pallas_plain(flat, f_off, f_skip, k), picked,
+        reps=5, plain_reps=1, b=b, floor=k7c_floor(f_off, f_skip, FLAT_C, k))
+    # ... at B = 2,000 < 20C, where flat_form picks the row form
+    sb_off, sb_skip = f_off[:2000].contiguous(), f_skip[:2000].contiguous()
+    res["K7c B=2000"] = k7_forms(
+        "K7c B=2000", lambda form: attic.xor_scan_pallas_cuda(
+            flat, sb_off, sb_skip, k, form=form),
+        lambda: attic.xor_scan_pallas_plain(flat, sb_off, sb_skip, k),
+        attic.flat_form(2000, FLAT_S, FLAT_C, k), reps=10, plain_reps=0,
+        b=gather_bound(sb_off[None], sb_skip[None], FLAT_C, k)[0],
+        floor=k7c_floor(sb_off, sb_skip, FLAT_C, k))
+    # ... with offsets outside [0, C) that no skip covers
+    edge = f_off.clone()
+    edge[::7, ::5] = FLAT_C + 1
+    edge[1::11, 2::3] = -5
+    edge[3] = 65535
+    res["K7c edge"] = k7_forms(
+        "K7c edge (offsets outside [0, C), not skipped)",
+        lambda form: attic.xor_scan_pallas_cuda(flat, edge, f_skip, k,
+                                                form=form),
+        lambda: attic.xor_scan_pallas_plain(flat, edge, f_skip, k), picked,
+        reps=2, plain_reps=0,
+        b=gather_bound(edge[None], f_skip[None], FLAT_C, k)[0])
+    del flat, f_off, f_skip, sb_off, sb_skip, edge
+    torch.cuda.empty_cache()
+    # ... at a ragged shape: C = 1,000, S = 301, B = 9,001, all-skip rows
+    rc, rs, rb = 1000, 301, 9001
+    rflat = torch.empty((rs, rc * k, 128), dtype=torch.int32,
+                        device="cuda").random_(-2**31, 2**31, generator=gen)
+    r_off = torch.randint(0, rc, (rb, rs), generator=gen, dtype=torch.int32,
+                          device="cuda")
+    r_skip = torch.rand((rb, rs), generator=gen, device="cuda") < 0.25
+    r_skip[:3] = True
+    res["K7c ragged"] = k7_forms(
+        f"K7c ragged ({rb}, {rs}) C={rc}",
+        lambda form: attic.xor_scan_pallas_cuda(rflat, r_off, r_skip, k,
+                                                form=form),
+        lambda: attic.xor_scan_pallas_plain(rflat, r_off, r_skip, k),
+        attic.flat_form(rb, rs, rc, k), reps=10, plain_reps=1,
+        b=gather_bound(r_off[None], r_skip[None], rc, k)[0],
+        floor=k7c_floor(r_off, r_skip, rc, k))
+    del rflat, r_off, r_skip
     # K7d
     for name, case in cases.items():
         report(f"K7d {name}", "refresh_parity", [outs[f"K7d {name}"]],
@@ -1978,15 +2147,19 @@ def main() -> int:
               k5["Q=96"]),
         entry("l2_distance", "l2_distance.cu",
               "pacmann_tpu/ops/distance.py:91", k6["max_abs_err"], k6, k6),
-        entry("xor_hintgen_mm_s8p", "xor_gather.cu",
-              "pacmann_tpu/ops/attic.py:106", k7["K7a"]["max_abs_err"],
-              k7["K7a"], k7["K7a"]),
+        dict(entry("xor_hintgen_mm_s8p", "xor_gather.cu",
+                   "pacmann_tpu/ops/attic.py:106",
+                   max(v["max_abs_err"] for key, v in k7.items()
+                       if key.startswith("K7a")), k7["K7a"], k7["K7a"]),
+             form=k7["K7a"]["form"]),
         entry("xor_hintgen_pallas", "xor_gather.cu",
               "pacmann_tpu/ops/attic.py:187", k7["K7b"]["max_abs_err"],
               k7["K7b"], k7["K7b"]),
-        entry("xor_scan_pallas", "xor_gather.cu",
-              "pacmann_tpu/ops/attic.py:266", k7["K7c"]["max_abs_err"],
-              k7["K7c"], k7["K7c"]),
+        dict(entry("xor_scan_pallas", "xor_gather.cu",
+                   "pacmann_tpu/ops/attic.py:266",
+                   max(v["max_abs_err"] for key, v in k7.items()
+                       if key.startswith("K7c")), k7["K7c"], k7["K7c"]),
+             form=k7["K7c"]["form"]),
         entry("refresh_parity", "refresh_parity.cu",
               "pacmann_tpu/ops/attic.py:355",
               max(v["max_abs_err"] for key, v in k7.items()

@@ -12,9 +12,13 @@ route-equivalence surfaces, each beside a plain torch version.
     with refresh_parity_np, its numpy twin.
 
 K7a-K7c are kernel K2's gather-XOR on other layouts and share its source
-(csrc/xor_gather.cu); K7d is csrc/refresh_parity.cu. Each computes the
-function, not the TPU mechanism: no one-hot products, no block padding, no
-zero pad rows. Each entry point takes numpy arrays or tensors and runs on
+(csrc/xor_gather.cu); K7d is csrc/refresh_parity.cu. K7a and K7c each run
+in one of two forms that plane_form / flat_form pick by shape: "staged"
+(K2's chunk-major structure: a chunk's column slice staged in shared
+memory and read there by a block of hints) where many hints name each
+chunk row, else "row" (a warp per output row, gathering from L2). Each
+computes the function, not the TPU mechanism: no one-hot products, no
+block padding, no zero pad rows. Each entry point takes numpy arrays or tensors and runs on
 CUDA unless given device="cpu" or CPU tensors (cuda_lib.default_device); a
 CPU tensor takes the plain version, a CUDA tensor the kernel, with no
 fallback between them. u32 data are int32 tensors of the same bits
@@ -48,6 +52,49 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
              device: torch.device):
     cuda_lib.require_cuda_tensor(t, name, dtype)
     cuda_lib.require_shape(t, name, shape, device)
+
+
+# The staged forms read a chunk's whole slice once per block of hints, the
+# row forms only the rows their offsets name. K7a's staged ring holds 2 x
+# (C + 1) rows of 128 B beside K2's offset runs for 1,280 hints: 192,768 B
+# at C = 512 (its entry refuses C above 667 on an H100). K7c's holds 2 x
+# (C + 1) rows of 32 B and 16-bit row indices for up to 5,120 hints: about
+# 151 KB at C = 2,048 (C above 3,310 refused); its 16-bit indices alone
+# would allow C < 65,535. K7c's staged form also copies the DB slice-major
+# in each call, and runs one CTA a (slice, hint block): on the H100 it
+# lost to the row form at B = 9C (0.67 against 0.39 ms at C = 1,000, S =
+# 301) and at 14C (2.31 against 1.99 ms at C = 2,048, S = 492), and won at
+# 28C (3.12 against 3.96 ms); the lines through those cross near 18C.
+PLANE_STAGED_MIN_REUSE = 16
+PLANE_STAGED_MAX_C = 512
+FLAT_STAGED_MIN_REUSE = 20
+FLAT_STAGED_MAX_C = 3072
+FORMS = ("staged", "row")
+
+
+def plane_form(P: int, B: int, S: int, C: int, k: int) -> str:
+    """K7a's form for a (P, B) output over S chunks of C entries of k rows:
+    "staged" where B >= PLANE_STAGED_MIN_REUSE * C and C <=
+    PLANE_STAGED_MAX_C, else "row". Deterministic, and no fallback: the
+    form chosen launches or raises."""
+    if B >= PLANE_STAGED_MIN_REUSE * C and C <= PLANE_STAGED_MAX_C:
+        return "staged"
+    return "row"
+
+
+def flat_form(B: int, S: int, C: int, k: int) -> str:
+    """K7c's form for B rows over S chunks of C entries of k rows:
+    "staged" where B >= FLAT_STAGED_MIN_REUSE * C and C <=
+    FLAT_STAGED_MAX_C, else "row". Deterministic, and no fallback."""
+    if B >= FLAT_STAGED_MIN_REUSE * C and C <= FLAT_STAGED_MAX_C:
+        return "staged"
+    return "row"
+
+
+def _form_flag(form: str) -> int:
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}: one of {FORMS}")
+    return int(form == "staged")
 
 
 # ---------------------------------------------------------------------------
@@ -89,10 +136,13 @@ def xor_hintgen_mm_s8p_plain(dbp: torch.Tensor,
                        words).to(torch.int32)
 
 
-def xor_hintgen_mm_s8p_cuda(dbp: torch.Tensor,
-                            offsets: torch.Tensor) -> torch.Tensor:
-    """Kernel K7a: xor_hintgen_mm_s8p_plain's contract on CUDA tensors.
-    Counts its launches in xor_hintgen_mm_s8p_cuda.launches."""
+def xor_hintgen_mm_s8p_cuda(dbp: torch.Tensor, offsets: torch.Tensor,
+                            form: str | None = None) -> torch.Tensor:
+    """Kernel K7a: xor_hintgen_mm_s8p_plain's contract on CUDA tensors, in
+    `form` ("staged" or "row"; None: plane_form's choice). The staged form
+    XORs each plane's bytes into scratch as large as its output, allocated
+    here, and then assembles the words. Counts its launches in
+    xor_hintgen_mm_s8p_cuda.launches."""
     cuda_lib.require_cuda_tensor(dbp, "dbp", torch.int8)
     S, P, planes, C, E = dbp.shape
     if planes != 4 or E % 128 or E == 0:
@@ -100,12 +150,19 @@ def xor_hintgen_mm_s8p_cuda(dbp: torch.Tensor,
                          "k*128) plane-major layout")
     T = offsets.shape[1] if offsets.dim() == 3 else -1
     _require(offsets, "offsets", torch.int32, (P, T, S), dbp.device)
+    form = form or plane_form(P, T, S, C, E // 128)
+    staged = _form_flag(form)
+    # the staged form's output as byte planes, before the words are
+    # assembled
+    scratch = torch.empty((P, T, 4 * E) if staged else (0,),
+                          dtype=torch.int8, device=dbp.device)
     out = torch.empty((P, T, E), dtype=torch.int32, device=dbp.device)
     fn = cuda_lib.function("xor_gather", "xor_hintgen_planes", [
-        ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     cuda_lib.check(
-        fn(dbp.data_ptr(), offsets.data_ptr(), out.data_ptr(), S, P, C,
-           E // 128, T, cuda_lib.stream_ptr(dbp.device)), "xor_hintgen_planes")
+        fn(dbp.data_ptr(), offsets.data_ptr(), scratch.data_ptr(),
+           out.data_ptr(), S, P, C, E // 128, T, staged,
+           cuda_lib.stream_ptr(dbp.device)), f"xor_hintgen_planes ({form})")
     xor_hintgen_mm_s8p_cuda.launches += 1
     return out
 
@@ -201,9 +258,13 @@ def xor_scan_pallas_plain(db: torch.Tensor, offsets: torch.Tensor,
 
 
 def xor_scan_pallas_cuda(db: torch.Tensor, offsets: torch.Tensor,
-                         skip: torch.Tensor, k: int) -> torch.Tensor:
-    """Kernel K7c: xor_scan_pallas_plain's contract on CUDA tensors.
-    Counts its launches in xor_scan_pallas_cuda.launches."""
+                         skip: torch.Tensor, k: int,
+                         form: str | None = None) -> torch.Tensor:
+    """Kernel K7c: xor_scan_pallas_plain's contract on CUDA tensors, in
+    `form` ("staged" or "row"; None: flat_form's choice). The staged form
+    first copies db slice-major and writes the (S, B) 16-bit row indices
+    into scratch of db's size and a little more, allocated here. Counts its
+    launches in xor_scan_pallas_cuda.launches."""
     cuda_lib.require_cuda_tensor(db, "db", torch.int32)
     S, CK, L = db.shape
     if L != 128 or k < 1 or CK % k:
@@ -212,12 +273,21 @@ def xor_scan_pallas_cuda(db: torch.Tensor, offsets: torch.Tensor,
     B = offsets.shape[0]
     _require(offsets, "offsets", torch.int32, (B, S), db.device)
     _require(skip, "skip", torch.bool, (B, S), db.device)
+    C = CK // k
+    form = form or flat_form(B, S, C, k)
+    staged = _form_flag(form)
+    # the staged form's slice-major copy of db, then its (S, B) row
+    # indices, B rounded up to 8 (16-byte copies)
+    scratch = torch.empty(
+        db.numel() * 4 + S * (-(-B // 8) * 8) * 2 if staged else 0,
+        dtype=torch.uint8, device=db.device)
     out = torch.empty((B, k, L), dtype=torch.int32, device=db.device)
     fn = cuda_lib.function("xor_gather", "xor_scan_flat", [
-        ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     cuda_lib.check(
-        fn(db.data_ptr(), offsets.data_ptr(), skip.data_ptr(), out.data_ptr(),
-           S, CK // k, k, B, cuda_lib.stream_ptr(db.device)), "xor_scan_flat")
+        fn(db.data_ptr(), offsets.data_ptr(), skip.data_ptr(),
+           scratch.data_ptr(), out.data_ptr(), S, C, k, B, staged,
+           cuda_lib.stream_ptr(db.device)), f"xor_scan_flat ({form})")
     xor_scan_pallas_cuda.launches += 1
     return out
 

@@ -14,7 +14,7 @@ An offset outside [0, C) is a skip. Two versions of that function:
     reduction);
   - xor_gather_cuda: kernel K2 (csrc/xor_gather.cu), any k >= 1, in one
     of two forms that gather_form picks by shape: "chunk" (chunk-major:
-    a chunk's rows staged in shared memory, read by a block of up to 3,072
+    a chunk's rows staged in shared memory, read by a block of up to 2,560
     hints) where a partition's B rows name each chunk row 16 times or
     more (hint generation at C <= 512), else "row" (row-split:
     row_split_warps warps per output row and group of at most 4 of its
@@ -38,7 +38,7 @@ SKIP = -1   # the sentinel offset hint generation writes for a skipped chunk
 # the faster at hint generation (B = 24C) and at B = 16C, the second at
 # the server scan (B <= 96) and on a short scan (S = 13, B ~ 10C). Its
 # ring of 2 x (C + 1) rows of 64 B and the run tables must fit the card's
-# shared memory: 213,120 B at C = 512 (the kernel refuses C above 663).
+# shared memory: 188,544 B at C = 512 (the kernel refuses C above 855).
 CHUNK_MAJOR_MIN_REUSE = 16
 CHUNK_MAJOR_MAX_C = 512
 # warps that fill an H100 at half occupancy (132 SMs x 32): the row form

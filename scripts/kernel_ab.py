@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B of the port's kernels K1, K3, K4 and K5 on one NVIDIA GPU.
+"""A/B of the port's kernels K1-K5, K7a and K7c on one NVIDIA GPU.
 
 Times the kernels of this tree and of a base tree (another checkout, e.g.
 a `git archive` of the parent commit unpacked into a git-ignored
@@ -14,15 +14,26 @@ Hp = 14,336); back-to-back calls (CUDA events) and calls replayed from a
 CUDA graph (device time); K4 also over the 7M pin's whole budget (Q =
 max_query_num), its replay wherever the tree's plan needs no opt-in above
 48 KiB; where the tree's aes_mmo.cu has one, an empty kernel of K5's Q =
-6 launch shape, replayed (the launch floor). Every K1, K3, K4 and K5
-result is held against its plain version. With --phases it then times
-K3's phases in this tree: protocol.cu built with -DK3_PHASE_CLOCKS, whose
-marks record the SM clock (clock64) of CTA 0 of partition 0 around each
-cluster barrier, summed over the windows; and K5's block setup:
-aes_mmo.cu built with -DAES_FILL_CLOCKS, whose marks record the SM clock
-of block (0, 0) after its 64 KB image and after round 1's fold.
+6 launch shape, replayed (the launch floor). The gather group: K2's
+chunk-major form at the 1M prep (K1's table and the skip mask) at k = 2,
+5 and 8 on random DBs; K7a on the byte planes of the k = 2 and k = 5 DBs
+with the same offsets (skips folded in); K7c on the flat single-server
+layout (B = 57,632, S = 492, C = 2,048, skip 25 %), the entry points'
+choice of form (a tree whose wrappers take a form also times the row
+form). Every result is held against its plain version. --groups picks
+"pir" (K1, K3, K4, K5) and/or "gather" (K2, K7a, K7c). With --phases it
+then times this tree's phases: K3's, from protocol.cu built with
+-DK3_PHASE_CLOCKS, whose marks record the SM clock (clock64) of CTA 0 of
+partition 0 around each cluster barrier, summed over the windows; K5's
+block setup, from aes_mmo.cu built with -DAES_FILL_CLOCKS (the SM clock
+of block (0, 0) after its 64 KB image and after round 1's fold); and the
+staged gather's (K2's chunk form, K7a's and K7c's staged forms), from
+xor_gather.cu built with -DXOR_PHASE_CLOCKS (thread 0 of CTA (0, 0, 0):
+SM clocks waiting for a stage, on the offset runs, issuing copies,
+gathering, in the epilogue), with each staged call's device time per
+kernel from torch.profiler.
 
-    python3 scripts/kernel_ab.py --base DIR [--phases]
+    python3 scripts/kernel_ab.py --base DIR [--groups pir,gather] [--phases]
 
 Prints one line per measurement and writes chiprun_out/kernel_ab.json.
 """
@@ -91,9 +102,94 @@ def cases(cs, aes, pk, gen) -> tuple[list, list, list, list]:
     return k1, k5, k3, k4
 
 
-def turn(tree: Path) -> dict:
-    """One turn: this process times `tree`'s kernels, with this tree's
-    chip_smoke.py helpers."""
+def gather_cases(cs, gen) -> tuple[list, list, list]:
+    """K2, K7a and K7c cases on the card: (label, inputs...). K2 and K7a
+    share the 1M prep's offsets (K1's table, the skip mask folded in: -1
+    for K2, C for K7a) on random DBs of k rows; K7c is chip_smoke.py's flat
+    layout."""
+    import torch
+
+    from pacmann_tpu_torch.ops import aes, attic
+    from pacmann_tpu_torch.pir.device_engine import _build_skip
+    from pacmann_tpu_torch.pir.params import (derive_batch_params,
+                                              derive_piano_params)
+
+    c = derive_batch_params(cs.N, cs.ENTRY_BYTES, cs.BATCH, cs.FAIL)
+    p = derive_piano_params(c.partition_size, cs.ENTRY_BYTES, cs.FAIL)
+    S, Hp, R, C = (p.set_size, p.primary_hint_num, p.max_query_per_chunk,
+                   p.chunk_size)
+    T, P = Hp + S * R, c.partition_num
+    rk = aes.round_keys([bytes([i]) * 16 for i in range(P)]).cuda()
+    table = aes.aes_mmo_cuda(rk, T, S, p.chunk_mask)
+    skip = _build_skip(P, T, Hp, R, S, "cuda")
+    k2_off = torch.where(skip, -1, table).contiguous()
+    k7a_off = torch.where(skip, C, table).contiguous()
+    del table, skip
+    k2, k7a = [], []
+    for k in (2, 5, 8):
+        db = torch.empty((S, P, C * k, 128), dtype=torch.int32,
+                         device="cuda").random_(-2**31, 2**31, generator=gen)
+        k2.append((f"k={k}", db, k2_off, k))
+        if k < 8:
+            k7a.append((f"k={k}", attic.to_plane_major_s8(db, k), k7a_off))
+    flat = torch.empty((cs.FLAT_S, cs.FLAT_C * 2, 128), dtype=torch.int32,
+                       device="cuda").random_(-2**31, 2**31, generator=gen)
+    f_off = torch.randint(0, cs.FLAT_C, (cs.FLAT_B, cs.FLAT_S),
+                          generator=gen, dtype=torch.int32, device="cuda")
+    f_skip = torch.rand((cs.FLAT_B, cs.FLAT_S), generator=gen,
+                        device="cuda") < 0.25
+    return k2, k7a, [(f"B={cs.FLAT_B}", flat, f_off, f_skip, 2)]
+
+
+def gather_turn(cs, res: dict) -> None:
+    """The gather group of one turn: K2's chunk form, K7a and K7c (the
+    entry point's form; also the row form where the wrappers take one),
+    each held against its plain version, timed with CUDA events."""
+    import inspect
+
+    import torch
+
+    from pacmann_tpu_torch.ops import attic, xor_scan
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    k2, k7a, k7c = gather_cases(cs, gen)
+    forms = "form" in inspect.signature(attic.xor_scan_pallas_cuda).parameters
+    for label, db, off, k in k2:
+        got = xor_scan.xor_gather_cuda(db, off, k, form="chunk")
+        cs.check(torch.equal(got, xor_scan.xor_gather_plain(db, off, k)),
+                 f"K2 chunk {label} differs from its plain version")
+        del got
+        res[f"K2 chunk {label}"] = (cs.cuda_ms(
+            lambda: xor_scan.xor_gather_cuda(db, off, k, form="chunk"), 5),
+            None)
+    for label, dbp, off in k7a:
+        want = attic.xor_hintgen_mm_s8p_plain(dbp, off)
+        calls = {"": lambda: attic.xor_hintgen_mm_s8p_cuda(dbp, off)}
+        if forms:
+            calls[" row"] = lambda: attic.xor_hintgen_mm_s8p_cuda(
+                dbp, off, form="row")
+        for form, call in calls.items():
+            cs.check(torch.equal(call(), want),
+                     f"K7a{form} {label} differs from its plain version")
+            res[f"K7a{form} {label}"] = (cs.cuda_ms(call, 5), None)
+        del want
+    for label, db, off, skip, k in k7c:
+        want = attic.xor_scan_pallas_plain(db, off, skip, k)
+        calls = {"": lambda: attic.xor_scan_pallas_cuda(db, off, skip, k)}
+        if forms:
+            calls[" row"] = lambda: attic.xor_scan_pallas_cuda(
+                db, off, skip, k, form="row")
+        for form, call in calls.items():
+            cs.check(torch.equal(call(), want),
+                     f"K7c{form} {label} differs from its plain version")
+            res[f"K7c{form} {label}"] = (cs.cuda_ms(call, 5), None)
+        del want
+
+
+def turn(tree: Path, groups: tuple) -> dict:
+    """One turn: this process times `tree`'s kernels of `groups`, with
+    this tree's chip_smoke.py helpers."""
     sys.path[:0] = [str(ROOT)]
     import torch
 
@@ -104,6 +200,12 @@ def turn(tree: Path) -> dict:
     from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT as DPP
 
     assert Path(pk.__file__).resolve().is_relative_to(tree.resolve())
+    res = {}
+    if "gather" in groups:
+        gather_turn(cs, res)
+        torch.cuda.empty_cache()
+    if "pir" not in groups:
+        return res
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     k1, k5, k3, k4 = cases(cs, aes, pk, gen)
@@ -113,7 +215,6 @@ def turn(tree: Path) -> dict:
 
     def k4_replays(Hp, S):
         return k4_plan is None or k4_plan(Hp, S) <= 48 * 1024
-    res = {}
     for label, rk, T, S, mask in k1:
         got = aes.aes_mmo_cuda(rk, T, S, mask)
         cs.check(torch.equal(got, aes.prf_tables_plain(rk, T, S, mask)),
@@ -171,11 +272,70 @@ def turn(tree: Path) -> dict:
     return res
 
 
-def phases() -> dict:
-    """K3's SM clocks per phase at each case, from this tree's protocol.cu
-    built with -DK3_PHASE_CLOCKS and called through its C entry point; then
-    K5's block setup at each K5 case, from aes_mmo.cu built with
-    -DAES_FILL_CLOCKS."""
+def gather_phases(cs, nvcc: str) -> dict:
+    """The staged gather's phases in this tree: each staged call's device
+    time per kernel (torch.profiler), then thread 0 of CTA (0, 0, 0)'s SM
+    clocks per phase, from xor_gather.cu built with -DXOR_PHASE_CLOCKS and
+    put in place of the wrappers' build."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pacmann_tpu_torch.ops import attic, xor_scan
+    from pacmann_tpu_torch.utils import cuda_lib
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    k2, k7a, k7c = gather_cases(cs, gen)
+    calls = {f"K2 chunk {label}": (
+        lambda db=db, off=off, k=k: xor_scan.xor_gather_cuda(
+            db, off, k, form="chunk")) for label, db, off, k in k2}
+    calls.update({f"K7a staged {label}": (
+        lambda dbp=dbp, off=off: attic.xor_hintgen_mm_s8p_cuda(
+            dbp, off, form="staged")) for label, dbp, off in k7a})
+    calls.update({f"K7c staged {label}": (
+        lambda db=db, off=off, skip=skip, k=k: attic.xor_scan_pallas_cuda(
+            db, off, skip, k, form="staged"))
+        for label, db, off, skip, k in k7c})
+    res = {}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        per_kernel = {ev.key.split("(")[0]: ev.device_time_total / 3e3
+                      for ev in prof.key_averages()
+                      if ev.device_time_total > 0}
+        res[name] = dict(device_ms=per_kernel)
+        print(f"{name}: device ms per kernel {per_kernel}", flush=True)
+    so = cuda_lib.BUILD / "libxor_gather_clocks.so"
+    subprocess.run([nvcc, *cuda_lib.NVCC_FLAGS, "-DXOR_PHASE_CLOCKS", "-o",
+                    str(so), str(cuda_lib.CSRC / "xor_gather.cu")], check=True)
+    lib = ctypes.CDLL(str(so.resolve()))
+    lib.xor_clocks_read.argtypes = [ctypes.c_void_p]
+    built = cuda_lib._LIBS.get("xor_gather")
+    cuda_lib._LIBS["xor_gather"] = lib
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * 6)()
+        cuda_lib.check(lib.xor_clocks_read(ctypes.addressof(buf)),
+                       "xor_clocks_read")
+        clocks = dict(zip(("wait", "runs", "issue", "gather", "epilogue",
+                           "total"), list(buf)))
+        res[name]["sm_clocks"] = clocks
+        print(f"{name}: SM clocks of thread 0, CTA (0, 0, 0) {clocks}",
+              flush=True)
+    cuda_lib._LIBS["xor_gather"] = built
+    return res
+
+
+def phases(groups: tuple) -> dict:
+    """This tree's phases. "pir": K3's SM clocks per phase at each case,
+    from protocol.cu built with -DK3_PHASE_CLOCKS and called through its C
+    entry point; then K5's block setup at each K5 case, from aes_mmo.cu
+    built with -DAES_FILL_CLOCKS. "gather": gather_phases."""
     sys.path[:0] = [str(ROOT)]
     import torch
 
@@ -186,6 +346,12 @@ def phases() -> dict:
 
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     cuda_lib.BUILD.mkdir(parents=True, exist_ok=True)
+    res = {}
+    if "gather" in groups:
+        res.update(gather_phases(cs, nvcc))
+        torch.cuda.empty_cache()
+    if "pir" not in groups:
+        return res
     so = cuda_lib.BUILD / "libprotocol_phases.so"
     subprocess.run([nvcc, *cuda_lib.NVCC_FLAGS, "-DK3_PHASE_CLOCKS", "-o",
                     str(so), str(cuda_lib.CSRC / "protocol.cu")], check=True)
@@ -196,7 +362,6 @@ def phases() -> dict:
     windows = 32                        # kClockWindows in protocol.cu
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    res = {}
     _, k5, k3, _ = cases(cs, aes, pk, gen)
     for label, a, kw, (sel_p, qs_p) in k3:
         Q, P = a[7].shape
@@ -275,12 +440,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", type=Path,
                     help="root of the base tree (holds pacmann_tpu_torch)")
+    ap.add_argument("--groups", default="pir,gather",
+                    help="comma-separated: pir (K1, K3, K4, K5), gather "
+                    "(K2, K7a, K7c)")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--out", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn is not None:
-        args.out.write_text(json.dumps(turn(args.turn)))
+        args.out.write_text(json.dumps(turn(args.turn,
+                                            tuple(args.groups.split(",")))))
         return 0
     if args.base is None:
         ap.error("--base is required")
@@ -300,15 +469,16 @@ def main() -> int:
                                       ("tree", ROOT), ("base", args.base))):
         got = out / f"kernel_ab_turn{i}.json"
         subprocess.run([sys.executable, __file__, "--turn", str(tree),
-                        "--out", str(got)], check=True)
+                        "--out", str(got), "--groups", args.groups],
+                       check=True)
         for key, value in json.loads(got.read_text()).items():
             res.setdefault(key, {}).setdefault(name, []).append(value)
             print(name, key, value, flush=True)
     if args.phases:
-        res["K3 phases"] = phases()
+        res["phases"] = phases(tuple(args.groups.split(",")))
     (out / "kernel_ab.json").write_text(json.dumps(res, indent=1))
     for key, v in res.items():
-        if key != "K3 phases":
+        if key != "phases":
             print(key, json.dumps(v))
     return 0
 

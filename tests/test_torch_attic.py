@@ -168,3 +168,70 @@ def test_attic_cpu_tensors_take_the_plain_versions(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             attic.xor_scan_pallas(db.numpy(), off.numpy(), skip.numpy(), 1)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_xor_scan_pallas_ragged_matches_jax(k):
+    """K7c at a ragged flat shape: C = 12 (no power of two), S = 7 (S % 4
+    != 0), B = 37 (no multiple of the JAX block of 16, which pads it), a
+    row that skips every chunk and one that skips none. Bit-equal (zero
+    tolerance)."""
+    rng = np.random.default_rng(40 + k)
+    S, C, B = 7, 12, 37
+    db = _u32(rng, S, C * k, 128)
+    off = rng.integers(0, C, size=(B, S), dtype=np.uint32)
+    skip = rng.random((B, S)) < 0.3
+    skip[5] = True
+    skip[6] = False
+    want = np.asarray(jattic.xor_scan_pallas(db, off, skip, k, block_b=16))
+    got = attic.xor_scan_pallas(db, off, skip, k, block_b=16, device="cpu")
+    assert np.array_equal(to_u32(got), want)
+    assert not want[5].any()
+    assert np.array_equal(want, xor_scan_np(db, off, skip, k))
+
+
+def test_plane_major_s8_ragged_hint_count_matches_jax():
+    """K7a at T = 1,100 hints: no multiple of the JAX hint block (two blocks
+    of 640, padded) nor of a staged CTA's 1,536; C = 12, S = 6. Bit-equal
+    (zero tolerance)."""
+    rng = np.random.default_rng(44)
+    S, P, C, T, k = 6, 2, 12, 1100, 2
+    db4 = _u32(rng, S, P, C * k, 128)
+    table = rng.integers(0, C, size=(P, T, S), dtype=np.uint32)
+    skip = rng.random((P, T, S)) < 0.3
+    want = np.asarray(jattic.xor_hintgen_mm_s8p(
+        jattic.to_plane_major_s8(db4, k), table, skip, k, sc=3))
+    dbp = attic.to_plane_major_s8(db4, k, device="cpu")
+    got = attic.xor_hintgen_mm_s8p(dbp, table, skip, k, sc=3, device="cpu")
+    assert np.array_equal(to_u32(got), want)
+
+
+_C7A, _C7C = attic.PLANE_STAGED_MAX_C, attic.FLAT_STAGED_MAX_C
+
+
+@pytest.mark.parametrize("P,B,C,form", [
+    (16, 16 * 512, 512, "staged"), (16, 16 * 512 - 1, 512, "row"),
+    (16, 16 * _C7A + 16, _C7A + 1, "row"), (16, 12512, 512, "staged"),
+    (1, 16 * 33, 33, "staged"), (16, 96, 512, "row")])
+def test_plane_form_rule(P, B, C, form):
+    """K7a's form by shape: staged from B = 16C up, C <= 512."""
+    assert attic.plane_form(P, B, 124, C, 2) == form
+
+
+@pytest.mark.parametrize("B,C,form", [
+    (20 * 2048, 2048, "staged"), (20 * 2048 - 1, 2048, "row"),
+    (57_632, 2048, "staged"), (28_816, 2048, "row"),
+    (20 * _C7C, _C7C, "staged"), (20 * _C7C + 20, _C7C + 1, "row"),
+    (10**7, 65_534, "row"), (10**7, 65_535, "row"), (9001, 1000, "row"),
+    (2000, 2048, "row")])
+def test_flat_form_rule(B, C, form):
+    """K7c's form by shape: staged from B = 20C up, C <= 3,072 (the ring's
+    shared memory, well under the 16-bit row indices' C < 65,535)."""
+    assert attic.flat_form(B, 492, C, 2) == form
+
+
+def test_attic_forms_are_named():
+    """A form other than "staged" or "row" is refused before any launch."""
+    assert [attic._form_flag(f) for f in attic.FORMS] == [1, 0]
+    with pytest.raises(ValueError):
+        attic._form_flag("chunk")
