@@ -51,7 +51,10 @@ queries). Phases, in order:
      plain version,
      bit-equal and timed beside its bound: K7b (xor_hintgen_pallas) and
      K7a (xor_hintgen_mm_s8p, on to_plane_major_s8 of the DB, sc = 1 and
-     4) on the engine's DB with K1's table and the skip mask; K7c
+     4) on the engine's DB with K1's table and the skip mask, K7b in both
+     forms (staged and row), each also replayed from a CUDA graph, and at
+     k = 5, at B = 16C - 1 and 16C and on a ragged input (S = 13, B =
+     5,000, all-skip rows, offsets outside [0, C) not skipped); K7c
      (xor_scan_pallas) on the flat single-server layout of 1M x 640 B
      (C = 2,048, S = 492, B = 57,632, skip 25 %); K7a and K7c in both
      forms (staged and row), beside the staged form's shared-memory floor,
@@ -77,9 +80,17 @@ queries). Phases, in order:
      analytic bound, params.expected_success_rate); then a table-free
      "pallas" engine in measure_comm mode: three batch-96 batches with the
      same answers and state as the unmeasured table engine, and message
-     bytes equal to the analytic model; then the repair pins on the
-     engine, each DB freed before the next: n = 1M entries of 3,968 B
-     (k = 8, 4.16 GB packed) on route "xla", and n = 5M entries of 640 B
+     bytes equal to the analytic model; then the host-state engines
+     (host_engines_phase): PianoPIR, SimpleBatchPianoPIR and
+     FusedBatchPianoPIR, each on CUDA against the CPU at a small size, then
+     each at full size with its own launch counts and the forms its
+     wrappers picked: PianoPIR and SimpleBatchPianoPIR launch K1 and K7c
+     (staged at prep, row per query) and FusedBatchPianoPIR K1, K7b
+     (staged) and K2 (row-split), prep ms, ms per query or batch, every
+     served row its raw row, success against the model; then the repair
+     pins on the engine, each DB freed before the next: n = 1M entries of
+     3,968 B (k = 8, 4.16 GB packed) on route "xla", and n = 5M entries of
+     640 B
      (Hp = 14,336, 5.23 GB packed) on "pallas" and "fused" (one warm and
      one timed prep, three batch-96 batches, every answered row equal to
      its raw row, success at least 0.98); after the "fused" paths' counts,
@@ -95,8 +106,9 @@ queries). Phases, in order:
   5. every PIR path launched K1 and K2, route "pallas" K4 and the table
      engine's "fused" K3, every table-free path K5, and no path another
      route's kernel nor K6; every plaintext path K6 and no PIR kernel; no
-     PIR or plaintext path an attic kernel; then _pir_select's time per
-     call on each route.
+     DevicePianoEngine, fused-search or plaintext path an attic kernel;
+     the host-state engines exactly the kernels above; then
+     _pir_select's time per call on each route.
 
 Prints a JSON line of per-kernel results, then as its last line
 {"ok": true, "device": {...}}. Any failed phase raises (non-zero exit,
@@ -111,6 +123,8 @@ Details too long for the end of the output go to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -700,11 +714,13 @@ def k7c_floor(off, skip, C: int, k: int) -> dict:
 
 
 def k7_forms(label: str, fn, plain, picked: str, reps: int,
-             plain_reps: int, b: dict, floor: dict | None = None) -> dict:
-    """Both forms of K7a or K7c (fn(form=...)) against the plain version on
-    one input, bit-equal, each timed with CUDA events beside the bound (and
-    the staged form's shared-memory floor). `ms` is the time of the form
-    the entry point picks (`picked`)."""
+             plain_reps: int, b: dict, floor: dict | None = None,
+             graph: bool = False) -> dict:
+    """Both forms of K7a, K7b or K7c (fn(form=...)) against the plain
+    version on one input, bit-equal, each timed with CUDA events beside the
+    bound (and the staged form's shared-memory floor). `ms` is the time of
+    the form the entry point picks (`picked`); `graph` adds each form's
+    time replayed from a CUDA graph (the device's time alone)."""
     import torch
 
     want = plain()
@@ -720,17 +736,46 @@ def k7_forms(label: str, fn, plain, picked: str, reps: int,
     del want
     times = {f: cuda_ms(lambda f=f: fn(form=f), reps) for f in ("staged",
                                                                 "row")}
+    replay = {f: graph_ms(lambda f=f: fn(form=f), reps) for f in (
+        "staged", "row")} if graph else {}
     plain_ms = cuda_ms(plain, plain_reps) if plain_reps else None
     floor = floor or {}
     print(f"{label}: both forms bit-equal to plain; picks {picked}: "
           f"staged {times['staged']:.4f} ms / row {times['row']:.4f} ms, "
+          + (f"replayed from a CUDA graph staged {replay['staged']:.4f} / "
+             f"row {replay['row']:.4f} ms, " if replay else "")
           + (f"plain {plain_ms:.3f} ms, " if plain_ms else "")
           + f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
           + (f", shared-memory floor {floor['floor_ms']:.4f} ms"
              if floor else ""))
-    return dict(max_abs_err=err, form=picked, ms=times[picked],
-                staged_ms=times["staged"], row_ms=times["row"],
-                plain_ms=plain_ms, **floor, **b)
+    res = dict(max_abs_err=err, form=picked, ms=times[picked],
+               staged_ms=times["staged"], row_ms=times["row"],
+               plain_ms=plain_ms, **floor, **b)
+    if replay:
+        res.update(graph_ms=replay[picked], staged_graph_ms=replay["staged"],
+                   row_graph_ms=replay["row"])
+    return res
+
+
+def k7b_ragged(gen) -> tuple:
+    """K7b's ragged input: S = 13 (no multiple of 4 or of the index
+    pass's 32-chunk tile), P = 3, C = 300, k = 3, B = 5,000 >= 16C (no
+    multiple of the 2,560-hint block nor of 32), a quarter skipped, four
+    rows that skip every chunk, and offsets outside [0, C) that no skip
+    covers."""
+    import torch
+
+    S, P, C, k, B = 13, 3, 300, 3, 5000
+    db = torch.empty((S, P, C * k, 128), dtype=torch.int32,
+                     device="cuda").random_(-2**31, 2**31, generator=gen)
+    off = torch.randint(0, C, (P, B, S), generator=gen, dtype=torch.int32,
+                        device="cuda")
+    skip = torch.rand((P, B, S), generator=gen, device="cuda") < 0.25
+    skip[:, :4] = True
+    off[:, ::7, ::5] = C + 5
+    off[:, 1::11, 2::3] = -3
+    off[:, 9, :] = 65536 + 7
+    return db, off, skip, k
 
 
 def attic_phase(db4, table, skip, seed: int, reset,
@@ -804,14 +849,45 @@ def attic_phase(db4, table, skip, seed: int, reset,
               f"({b['bound_by']}){note}")
         res[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b)
 
-    # K7b
+    # K7b: both forms at the prep shape, then at both sides of its rule
+    # (B = 16C - 1, 16C) and on a ragged input; k = 5 with K7a's DB below
+    T = table.shape[1]
     want = attic.xor_hintgen_pallas_plain(db4, table, skip, k)
+    e = max_abs_err(outs["K7b"], want)
+    check(e == 0, f"K7b's entry point differs from its plain version ({e})")
+    picked = attic.hintgen_form(P, T, S, C, k)
+    check(picked == "staged",
+          f"hintgen_form picks {picked!r} at the main shape")
     b, rows = gather_bound(table, skip, C, k)
-    report("K7b", f"xor_hintgen_pallas {tuple(table.shape)}", [outs["K7b"]],
-           want, cuda_ms(lambda: attic.xor_hintgen_pallas_cuda(
-               db4, table, skip, k), reps=5),
-           cuda_ms(lambda: attic.xor_hintgen_pallas_plain(
-               db4, table, skip, k), reps=2), b, f"; {rows} distinct entries")
+    res["K7b"] = k7_forms(
+        f"K7b xor_hintgen_pallas {tuple(table.shape)} ({rows} distinct "
+        "entries)",
+        lambda form: attic.xor_hintgen_pallas_cuda(db4, table, skip, k,
+                                                   form=form),
+        lambda: attic.xor_hintgen_pallas_plain(db4, table, skip, k), picked,
+        reps=5, plain_reps=2, b=b, graph=True)
+    switch = attic.HINTGEN_STAGED_MIN_REUSE * C
+    for B in (switch - 1, switch):
+        o = torch.randint(0, C, (P, B, S), generator=gen, dtype=torch.int32,
+                          device="cuda")
+        m = torch.rand((P, B, S), generator=gen, device="cuda") < 0.25
+        res[f"K7b B={B}"] = k7_forms(
+            f"K7b B={B}", lambda form: attic.xor_hintgen_pallas_cuda(
+                db4, o, m, k, form=form),
+            lambda: attic.xor_hintgen_pallas_plain(db4, o, m, k),
+            attic.hintgen_form(P, B, S, C, k), reps=5, plain_reps=0,
+            b=gather_bound(o, m, C, k)[0])
+        del o, m
+    r_db, r_off, r_skip, r_k = k7b_ragged(gen)
+    rS, rP, rCK, _ = r_db.shape
+    res["K7b ragged"] = k7_forms(
+        f"K7b ragged {tuple(r_off.shape)} C={rCK // r_k} k={r_k}",
+        lambda form: attic.xor_hintgen_pallas_cuda(r_db, r_off, r_skip, r_k,
+                                                   form=form),
+        lambda: attic.xor_hintgen_pallas_plain(r_db, r_off, r_skip, r_k),
+        attic.hintgen_form(rP, r_off.shape[1], rS, rCK // r_k, r_k), reps=10,
+        plain_reps=0, b=gather_bound(r_off, r_skip, rCK // r_k, r_k)[0])
+    del r_db, r_off, r_skip
     # K7a: the same function on the byte planes, both forms
     off = torch.where(skip, C, table).contiguous()
     want = want.reshape(P, -1, k * 128)
@@ -822,7 +898,6 @@ def attic_phase(db4, table, skip, seed: int, reset,
         check(e == 0, f"K7a's entry point (sc={sc}) differs from its plain "
               f"version (max err {e})")
     del want
-    T = table.shape[1]
     picked = attic.plane_form(P, T, S, C, k)
     check(picked == "staged", f"plane_form picks {picked!r} at the main shape")
     res["K7a"] = k7_forms(
@@ -846,6 +921,13 @@ def attic_phase(db4, table, skip, seed: int, reset,
     # K7a at k = 5 (entries over 2 KiB) on a random DB of the same geometry
     db5 = torch.empty((S, P, C * 5, 128), dtype=torch.int32,
                       device="cuda").random_(-2**31, 2**31, generator=gen)
+    res["K7b k=5"] = k7_forms(
+        f"K7b k=5 {tuple(table.shape)}",
+        lambda form: attic.xor_hintgen_pallas_cuda(db5, table, skip, 5,
+                                                   form=form),
+        lambda: attic.xor_hintgen_pallas_plain(db5, table, skip, 5),
+        attic.hintgen_form(P, T, S, C, 5), reps=3, plain_reps=1,
+        b=gather_bound(table, skip, C, 5)[0], graph=True)
     dbp5 = attic.to_plane_major_s8(db5, 5)
     del db5
     res["K7a k=5"] = k7_forms(
@@ -1495,6 +1577,288 @@ def pir_select_times(engine, quotas, seed: int, reps: int = 20) -> dict:
     return out
 
 
+# the host-state engines' full-size runs: queries of PianoPIR (one
+# partition over all N entries), batches of the two batch engines
+HOST_QUERIES, HOST_BATCHES = 200, 100
+# the spies' rules: the form each wrapper picks where none is forced
+FORM_RULES = (("attic", "flat_form"), ("attic", "hintgen_form"),
+              ("xor_scan", "gather_form"))
+
+
+@contextlib.contextmanager
+def form_spy():
+    """Counts the forms the wrappers of K7c, K7b and K2 pick while the
+    block runs: each rule is wrapped, and restored on leaving. Yields a
+    Counter of (rule, form)."""
+    from pacmann_tpu_torch.ops import attic, xor_scan
+
+    mods = {"attic": attic, "xor_scan": xor_scan}
+    seen = collections.Counter()
+    saved = {}
+
+    def spy(name, rule):
+        def picked(*a):
+            form = rule(*a)
+            seen[(name, form)] += 1
+            return form
+        return picked
+
+    for mod, name in FORM_RULES:
+        saved[(mod, name)] = getattr(mods[mod], name)
+        setattr(mods[mod], name, spy(name, saved[(mod, name)]))
+    try:
+        yield seen
+    finally:
+        for (mod, name), rule in saved.items():
+            setattr(mods[mod], name, rule)
+
+
+def clients_of(engine) -> list:
+    """The numpy client state machines of a host-state engine."""
+    if hasattr(engine, "clients"):
+        return engine.clients
+    if hasattr(engine, "sub_pir"):
+        return [s.client for s in engine.sub_pir]
+    return [engine.client]
+
+
+def same_clients(a, b) -> bool:
+    """Every ClientState field and cache of two engines' clients equal."""
+    import dataclasses
+
+    for x, y in zip(clients_of(a), clients_of(b), strict=True):
+        for f in dataclasses.fields(x.state):
+            if not np.array_equal(getattr(x.state, f.name),
+                                  getattr(y.state, f.name)):
+                return False
+        if sorted(x.cache) != sorted(y.cache) or not all(
+                np.array_equal(x.cache[i], y.cache[i]) for i in x.cache):
+            return False
+    return True
+
+
+def host_parity(seed: int) -> None:
+    """The three host-state engines on CUDA against the same engine on the
+    CPU (plain versions) at a small size: the same answers and client
+    state after prep and after every query or batch."""
+    from pacmann_tpu_torch.pir.batch import SimpleBatchPianoPIR
+    from pacmann_tpu_torch.pir.engine import FusedBatchPianoPIR
+    from pacmann_tpu_torch.pir.piano import PianoPIR, QueryError
+
+    rng = np.random.default_rng(seed)
+    n = 16384
+    raw = rng.integers(0, 2**32, size=(n, ENTRY_BYTES // 4), dtype=np.uint32)
+    makers = {
+        "PianoPIR": lambda dev: PianoPIR(n, ENTRY_BYTES, raw, FAIL,
+                                         device=dev),
+        "SimpleBatchPianoPIR": lambda dev: SimpleBatchPianoPIR(
+            n, ENTRY_BYTES, BATCH, raw, FAIL, device=dev),
+        "FusedBatchPianoPIR": lambda dev: FusedBatchPianoPIR(
+            n, ENTRY_BYTES, BATCH, raw, FAIL, device=dev)}
+    for name, make in makers.items():
+        pair = [make("cuda"), make("cpu")]
+        for e in pair:
+            e.preprocessing(rng=np.random.default_rng(seed + 1))
+        check(same_clients(*pair), f"{name}: CUDA prep state differs from "
+              "the CPU's")
+        served = 0
+        for step in range(40 if name == "PianoPIR" else 5):
+            if name == "PianoPIR":
+                idx = int(rng.integers(0, n))
+                outs = []
+                for e in pair:
+                    try:
+                        outs.append(e.query(idx))
+                    except QueryError:
+                        outs.append(None)
+                same = (outs[0] is None and outs[1] is None) or (
+                    outs[0] is not None and outs[1] is not None
+                    and np.array_equal(*outs))
+                served += outs[0] is not None
+            else:
+                ids = [int(i) for i in rng.integers(0, n, BATCH)]
+                outs = [e.query(ids) for e in pair]
+                same = np.array_equal(*outs)
+                served += sum(np.array_equal(outs[0][r], raw[i])
+                              for r, i in enumerate(ids))
+            check(same and same_clients(*pair),
+                  f"{name}: CUDA differs from the CPU at step {step}")
+        check(served > 0, f"{name}: nothing served at the small size")
+        print(f"host engine {name} at n={n}: CUDA state and answers equal "
+              f"the CPU's over prep and {step + 1} steps ({served} served)")
+        del pair
+
+
+def host_prep_ms(prep, runs: int = 3) -> tuple[float, list]:
+    """One warm prep, then `runs` timed ones (host clock; every prep ends
+    in device-to-host copies, which synchronise): the min and all, ms."""
+    import torch
+
+    prep()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prep()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times), times
+
+
+def host_batches(engine, raw: np.ndarray, rng, label: str) -> dict:
+    """HOST_BATCHES batches of BATCH distinct uniform ids: every served row
+    equals its raw row, every other row is zeros, and the served share is
+    within 0.03 of the lossy FCFS model (params.expected_success_rate).
+    Returns ms per batch and the success."""
+    from pacmann_tpu_torch.pir.params import expected_success_rate
+
+    n = raw.shape[0]
+    P = engine.config.partition_num
+    served, ms = 0, []
+    for _ in range(HOST_BATCHES):
+        ids = rng.choice(n, BATCH, replace=False)
+        t0 = time.perf_counter()
+        out = engine.query([int(i) for i in ids])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        hit = (out == raw[ids]).all(axis=1)
+        check(bool((hit | ~out.any(axis=1)).all()),
+              f"{label}: a row is neither its raw row nor zeros")
+        served += int(hit.sum())
+    rate = served / (HOST_BATCHES * BATCH)
+    model = expected_success_rate(BATCH, P, BATCH // P, FAIL)
+    check(abs(rate - model) <= 0.03, f"{label}: success {rate:.4f} is not "
+          f"within 0.03 of the model's {model:.4f}")
+    return dict(batch_ms_median=float(np.median(ms)),
+                batch_ms_mean=float(np.mean(ms)), success=rate,
+                expected_success=model, batches=HOST_BATCHES)
+
+
+def host_engines_phase(raw: np.ndarray, seed: int, reset,
+                       counted) -> tuple[dict, dict]:
+    """The host-state engines (pir/piano.py, pir/batch.py, pir/engine.py)
+    at the main deployment, each DB freed before the next: first each on
+    CUDA against the CPU at a small size (host_parity); then, with the
+    launch counters set to 0 before each engine and read after it, and
+    the wrappers' form rules spied on (form_spy):
+      - PianoPIR over all N entries (C = 2,048, S = 492, T = 57,632): four
+        preps (one warm), each K1 once and K7c once in its staged form,
+        then HOST_QUERIES distinct uniform queries, each answered K7c once
+        in its row form and equal to its raw row (a hint miss raises
+        QueryError: at most 2^-FAIL + 0.03 of them);
+      - SimpleBatchPianoPIR (16 PianoPIRs, C = 512, S = 124, T = 12,512):
+        four preps, each partition's K1 and K7c staged, then HOST_BATCHES
+        batches (host_batches), every sub-query a K7c row launch;
+      - FusedBatchPianoPIR: four preps, each K1 once and K7b once in its
+        staged form at (16, 12,512, 124), then HOST_BATCHES batches, each
+        K2 once in its row-split form.
+    Prints prep ms (min of 3 after the warm run), ms per query or batch,
+    success and the phase's wall time. Returns (results, launches)."""
+    import torch
+
+    from pacmann_tpu_torch.pir.batch import SimpleBatchPianoPIR
+    from pacmann_tpu_torch.pir.engine import FusedBatchPianoPIR
+    from pacmann_tpu_torch.pir.piano import PianoPIR, QueryError
+
+    t_phase = time.perf_counter()
+    host_parity(seed)
+    rng = np.random.default_rng(seed + 1)
+    res, launches = {}, {}
+
+    path = "host PianoPIR"
+    print(f"-- path {path}")
+    reset()
+    with form_spy() as forms:
+        t0 = time.perf_counter()
+        pir = PianoPIR(N, ENTRY_BYTES, raw, FAIL)
+        torch.cuda.synchronize()
+        upload = time.perf_counter() - t0
+        p = pir.params
+        prep_ms, preps = host_prep_ms(
+            lambda: pir.preprocessing(rng=np.random.default_rng(seed + 2)))
+        ids = rng.choice(N, HOST_QUERIES, replace=False)
+        errors, ms = 0, []
+        for idx in ids:
+            t0 = time.perf_counter()
+            try:
+                got = pir.query(int(idx))
+            except QueryError:
+                errors += 1
+                continue
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(got, raw[idx]),
+                  f"{path}: query {idx} differs from its raw row")
+    launches[path] = got = counted(path, ("aes_mmo_tables",
+                                          "xor_scan_pallas"))
+    answered = HOST_QUERIES - errors
+    check(got["aes_mmo_tables"] == 4 and got["xor_scan_pallas"] == 4
+          + answered, f"{path}: launches {got}, not 4 K1 and {4 + answered} "
+          "K7c")
+    check(dict(forms) == {("flat_form", "staged"): 4,
+                          ("flat_form", "row"): answered},
+          f"{path}: K7c forms {dict(forms)}")
+    check(errors <= HOST_QUERIES * (2.0**-FAIL + 0.03),
+          f"{path}: {errors} of {HOST_QUERIES} queries failed")
+    res[path] = dict(upload_s=upload, prep_ms=prep_ms, prep_ms_all=preps,
+                     query_ms_median=float(np.median(ms)),
+                     query_ms_mean=float(np.mean(ms)),
+                     success=answered / HOST_QUERIES, C=p.chunk_size,
+                     S=p.set_size, T=p.primary_hint_num
+                     + p.set_size * p.max_query_per_chunk)
+    print(f"{path}: C={p.chunk_size} S={p.set_size} T={res[path]['T']}: "
+          f"DB upload+pack {upload:.3f} s, prep {prep_ms:.2f} ms (min of 3; "
+          f"{', '.join(f'{t:.2f}' for t in preps)}), query "
+          f"{res[path]['query_ms_median']:.3f} ms median, {answered} of "
+          f"{HOST_QUERIES} answered, each equal to its raw row")
+    del pir
+    torch.cuda.empty_cache()
+
+    for path, cls, own in (
+            ("host SimpleBatchPianoPIR", SimpleBatchPianoPIR,
+             ("aes_mmo_tables", "xor_scan_pallas")),
+            ("host FusedBatchPianoPIR", FusedBatchPianoPIR,
+             ("aes_mmo_tables", "xor_hintgen_pallas", "xor_gather"))):
+        print(f"-- path {path}")
+        reset()
+        with form_spy() as forms:
+            t0 = time.perf_counter()
+            e = cls(N, ENTRY_BYTES, BATCH, raw, FAIL)
+            torch.cuda.synchronize()
+            upload = time.perf_counter() - t0
+            prep_ms, preps = host_prep_ms(
+                lambda: e.preprocessing(rng=np.random.default_rng(seed + 3)))
+            run = host_batches(e, raw, rng, path)
+        launches[path] = got = counted(path, own)
+        P = e.config.partition_num
+        if cls is SimpleBatchPianoPIR:
+            rows = forms[("flat_form", "row")]
+            check(got["aes_mmo_tables"] == 4 * P
+                  and got["xor_scan_pallas"] == 4 * P + rows
+                  and dict(forms) == {("flat_form", "staged"): 4 * P,
+                                      ("flat_form", "row"): rows},
+                  f"{path}: launches {got}, forms {dict(forms)}")
+        else:
+            check(got["aes_mmo_tables"] == 4
+                  and got["xor_hintgen_pallas"] == 4
+                  and got["xor_gather"] == HOST_BATCHES
+                  and dict(forms) == {("hintgen_form", "staged"): 4,
+                                      ("gather_form", "row"): HOST_BATCHES},
+                  f"{path}: launches {got}, forms {dict(forms)}")
+        res[path] = dict(upload_s=upload, prep_ms=prep_ms,
+                         prep_ms_all=preps, forms={
+                             f"{r} {f}": c for (r, f), c in forms.items()},
+                         **run)
+        print(f"{path}: DB upload+pack {upload:.3f} s, prep {prep_ms:.2f} ms "
+              f"(min of 3; {', '.join(f'{t:.2f}' for t in preps)}), batch "
+              f"{run['batch_ms_median']:.3f} ms median, success "
+              f"{run['success']:.4f} (model {run['expected_success']:.4f}), "
+              "every served row equal to its raw row")
+        del e
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"host engines phase: {res['seconds']:.1f} s")
+    return res, launches
+
+
 def engine_phase(engine, raw: np.ndarray, seed: int, preps: int = 3,
                  batches: int = 10) -> dict:
     """Preprocessing (1 warm + `preps` timed) and `batches` timed 96-id
@@ -2046,6 +2410,10 @@ def main() -> int:
     reset_counts()
     paths[path] = measure_comm_phase(engine.db, args.seed + 60)
     launches[path] = read_counts(path, expected("pallas", True))
+    # the host-state engines at the main deployment, their own paths
+    host, host_launches = host_engines_phase(raw, args.seed + 90,
+                                             reset_counts, read_counts)
+    launches.update(host_launches)
     # the repair pins on the engine: 3,968 B entries (k = 8) on "xla", and
     # n = 5M (Hp = 14,336) on "pallas" and "fused";
     # each DB freed before the next
@@ -2096,7 +2464,7 @@ def main() -> int:
                    k2=k2, k2_wide=k2_wide, k2_ragged=k2_ragged, k2_5m=k2_5m,
                    k3_k4=k34, k3_k4_hp14336=k34_wide, k3_k4_wide_s=k3_wide,
                    k4_edge=k4_edge,
-                   k5=k5, k6=k6, k7=k7, paths=paths,
+                   k5=k5, k6=k6, k7=k7, paths=paths, host_engines=host,
                    ptxas=ptxas_notes,
                    launches=launches, pir_select_ms=select_ms,
                    resident_state=resident, peak_device_gb=peak_gb,
@@ -2152,9 +2520,11 @@ def main() -> int:
                    max(v["max_abs_err"] for key, v in k7.items()
                        if key.startswith("K7a")), k7["K7a"], k7["K7a"]),
              form=k7["K7a"]["form"]),
-        entry("xor_hintgen_pallas", "xor_gather.cu",
-              "pacmann_tpu/ops/attic.py:187", k7["K7b"]["max_abs_err"],
-              k7["K7b"], k7["K7b"]),
+        dict(entry("xor_hintgen_pallas", "xor_gather.cu",
+                   "pacmann_tpu/ops/attic.py:187",
+                   max(v["max_abs_err"] for key, v in k7.items()
+                       if key.startswith("K7b")), k7["K7b"], k7["K7b"]),
+             form=k7["K7b"]["form"]),
         dict(entry("xor_scan_pallas", "xor_gather.cu",
                    "pacmann_tpu/ops/attic.py:266",
                    max(v["max_abs_err"] for key, v in k7.items()

@@ -25,17 +25,32 @@
 //
 // The three attic kernels of pacmann_tpu/ops/attic.py compute the same
 // function on other layouts or with the skip mask beside the offsets:
-//   K7b `_hintgen_kernel` (xor_hintgen_skip): K2's layout, skip (P, B, S),
-//       warp-per-row form (gather_kernel);
+//   K7b `_hintgen_kernel` (xor_hintgen_skip): K2's layout, skip (P, B, S);
 //   K7c `_xor_kernel` (xor_scan_flat): the flat (S, C*k, 128) layout with
 //       offsets and skip (B, S), i.e. K7b's index computation at P = 1;
 //   K7a `_hintgen_mm_kernel_s8p` (xor_hintgen_planes): the plane-major DB
 //       (S, P, 4, C, E) int8, plane b holding byte b of every u32 word.
-// K7a and K7c each have two forms, chosen by ops/attic.py (plane_form,
-// flat_form) by shape: the staged form where many hints share a chunk's
-// rows, else the warp-per-row form (plane_kernel, gather_kernel). Their
-// warp-per-row forms read a row from L2 for every (hint, chunk): ~22-25
-// GB, at ~6 TB/s through L2 -> SM, 3.9 ms against a bound of 0.37-0.40.
+// K7a-K7c each have two forms, chosen by ops/attic.py (plane_form,
+// hintgen_form, flat_form) by shape: the staged form where many hints share
+// a chunk's rows, else the warp-per-row form (plane_kernel, gather_kernel).
+// Their warp-per-row forms read a row from L2 for every (hint, chunk):
+// ~22-25 GB, at ~6 TB/s through L2 -> SM, 3.1-3.9 ms against a bound of
+// 0.37-0.41.
+//
+//   K7b staged (B >= 16C, C <= 512): K2's chunk geometry (64-byte column
+//     slices, 4 lanes, 2,560 hints a CTA, cp.async fills), fed as K7c is:
+//     index_kernel first folds the mask into the offsets and writes (P, S,
+//     Bp) uint16 row indices (C for a skip or an offset outside [0, C); 99
+//     MB of offsets and 25 MB of mask read, 50 MB written at SIFT1M's
+//     shape, k = 2), and every stage copies its chunk's indices for the
+//     block (5 KB, contiguous) beside the rows. No offset runs and no
+//     packing: the stage holds 76 KB at C = 512 (C above 1,735 refused).
+//     On an H100 (700 W) at (16, 12,512, 124): 2.27 ms at k = 2 (row form
+//     3.08, K2's chunk form 2.72) and 5.63 at k = 5 (K2's 6.81). K2's runs
+//     read each hint's 8 offsets of a run at a 496-byte stride; the mask's
+//     8 bytes beside them, at a 124-byte stride, cost a 32-byte sector
+//     each and doubled the run's copies: that form (the mask copied into
+//     the runs, packed as row C) took 3.20 ms, above the row form.
 //
 //   K7a staged (B >= 16C, C <= 512): the planes' XORs are bytewise, so a
 //     CTA owns 128 bytes of one plane's rows (a whole cache line a row:
@@ -61,7 +76,7 @@
 //     is a line of its own, so the entry point first copies the DB slice-
 //     major (slice_major_kernel: 1.03 GB read and written), and a stage is
 //     then one bulk copy by the TMA engine of the slice's 64 KB, with the
-//     chunk's 16-bit row indices beside it (flat_index_kernel writes them
+//     chunk's 16-bit row indices beside it (index_kernel writes them
 //     from the (B, S) offsets and skip: 141 MB read, 57 MB written). At B
 //     = 57,632, S = 492, C = 2,048, k = 2, skip 25 %: 12 hint blocks x 32
 //     slices = 384 CTAs (151 KB); a quarter-warp phase carries 4 hints'
@@ -306,21 +321,22 @@ __global__ void __launch_bounds__(kThreads) row_split_kernel(
 //     a stage.
 //   The offsets and the grid: K2 and K7a take the (P, B, S) int32 offsets,
 //     copied as each hint's runs of kStRun chunks and packed two 16-bit
-//     row indices a word, the grid's x the slice. K7c (kFlat) takes the
-//     (S, Bp) uint16 row indices flat_index_kernel writes, bulk-copied
-//     with each chunk's rows into the same stage; the grid's x is the hint
-//     block, so the CTAs that stage one slice are launched together and
-//     share its chunks through L2.
+//     row indices a word. K7b and K7c (kIdx) take the (P, S, Bp) uint16
+//     row indices index_kernel writes (the skip mask folded in), copied
+//     with each chunk's rows into the same stage (K7b by cp.async, K7c by
+//     the bulk copy). The grid's x is the slice, but with kHintMajor (K7c)
+//     the hint block, so the CTAs that stage one slice are launched
+//     together and share its chunks through L2.
 // Dynamic shared memory, in order: kStStages stages of stage_rows (C + 1,
-// or all the rows the boxes write) rows of L uint4 (then, with kFlat, the
+// or all the rows the boxes write) rows of L uint4 (then, with kIdx, the
 // block's uint16 row indices, hb rounded up to a slot), each to a multiple
-// of 128 bytes; without kFlat the run's offsets as loaded, kHints x kStRun
+// of 128 bytes; without kIdx the run's offsets as loaded, kHints x kStRun
 // int32 [hint][chunk], and the packed run, kStRun / 2 x kHints words
 // [pair of chunks][hint]; with TMA fills an mbarrier a stage.
 constexpr int kStThreads = 512;   // threads per CTA
 constexpr int kStSlots = 20;      // hints (uint4 accumulators) a thread
 constexpr int kStStages = 2;      // chunks in flight
-constexpr int kStRun = 8;         // chunks per offset load (not kFlat)
+constexpr int kStRun = 8;         // chunks per offset load (not kIdx)
 
 // How a stage is filled: every thread copies its piece of each row by
 // cp.async (K2); one bulk copy of a contiguous slice (K7c); or boxes of a
@@ -339,8 +355,8 @@ struct StagedArgs {
   // strides in uint4, spp slices a plane
   size_t row, slice, plane, part;
   int spp;
-  const int32_t* offsets;   // (P, B, S), not kFlat
-  const uint16_t* idx;      // (S, Bp), kFlat
+  const int32_t* offsets;   // (P, B, S), not kIdx
+  const uint16_t* idx;      // (P, S, Bp), kIdx
   uint4* out;               // (P, B, k*32) uint4
   int S, P, C, B, k, hb, Bp;
   bool vec_off;             // offset rows copy 16 bytes at a time
@@ -395,7 +411,7 @@ extern "C" int xor_clocks_read(void* host) {
   } while (0)
 #endif
 
-template <int L, bool kFlat, Fill kFill>
+template <int L, bool kIdx, Fill kFill, bool kHintMajor>
 __global__ void __launch_bounds__(kStThreads, 1)
     staged_kernel(const __grid_constant__ StagedArgs a) {
   constexpr int kSlot = kStThreads / L;        // hints per slot
@@ -405,8 +421,8 @@ __global__ void __launch_bounds__(kStThreads, 1)
   extern __shared__ __align__(128) uint4 smem[];
   XOR_CLOCK_INIT();
   const int tid = threadIdx.x;
-  const int c = kFlat ? blockIdx.y : blockIdx.x;
-  const int b0 = (kFlat ? blockIdx.x : blockIdx.y) * a.hb;
+  const int c = kHintMajor ? blockIdx.y : blockIdx.x;
+  const int b0 = (kHintMajor ? blockIdx.x : blockIdx.y) * a.hb;
   const int p = blockIdx.z;
   const int S = a.S, C = a.C;
   const int nb = min(a.hb, a.B - b0);
@@ -417,10 +433,10 @@ __global__ void __launch_bounds__(kStThreads, 1)
   const uint4* slice0 = a.db + p * a.part + (c / a.spp) * a.plane +
                         (c % a.spp) * a.slice;
   const uint4* src0 = slice0 + piece;
-  // uint16 row indices a stage (kFlat): hb rounded up to a slot;
+  // uint16 row indices a stage (kIdx): hb rounded up to a slot;
   // the block's own (all but the last block: hb) are copied each chunk
-  const int idx_pad = kFlat ? (a.hb + kSlot - 1) / kSlot * kSlot : 0;
-  const int idx_own = kFlat ? min(a.hb, a.Bp - b0) : 0;
+  const int idx_pad = kIdx ? (a.hb + kSlot - 1) / kSlot * kSlot : 0;
+  const int idx_own = kIdx ? min(a.hb, a.Bp - b0) : 0;
   // a stage (uint4): its rows, then its indices, to a multiple of 128 B
   const int rows_l = a.stage_rows * L;
   const int stage = (rows_l + idx_pad / 8 + 7) / 8 * 8;
@@ -429,8 +445,8 @@ __global__ void __launch_bounds__(kStThreads, 1)
   uint32_t* runs = reinterpret_cast<uint32_t*>(raw + kHints * kStRun);
   // the stages' mbarriers, after the offset runs (or the stages)
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      kFlat ? static_cast<void*>(raw)
-            : static_cast<void*>(runs + kStRun / 2 * kHints));
+      kIdx ? static_cast<void*>(raw)
+           : static_cast<void*>(runs + kStRun / 2 * kHints));
   const int32_t* off0 = a.offsets + (static_cast<size_t>(p) * a.B + b0) * S;
   const uint32_t C32 = static_cast<uint32_t>(C);
 
@@ -439,7 +455,7 @@ __global__ void __launch_bounds__(kStThreads, 1)
   for (int z = tid; z < kStStages * L; z += kStThreads) {
     ring[(z / L) * stage + C * L + z % L] = make_uint4(0u, 0u, 0u, 0u);
   }
-  if constexpr (kFlat) {
+  if constexpr (kIdx) {
     const int tail = idx_pad - idx_own;
     for (int z = tid; z < kStStages * tail; z += kStThreads) {
       reinterpret_cast<uint16_t*>(ring + (z / tail) * stage +
@@ -453,11 +469,12 @@ __global__ void __launch_bounds__(kStThreads, 1)
     }
     __syncthreads();
   }
-  // chunk s's slice into its stage (and, with kFlat, the block's row
+  // chunk s's slice into its stage (and, with kIdx, the block's row
   // indices of chunk s)
   auto issue = [&](int s) {
     uint4* dst = ring + (s % kStStages) * stage;
-    const uint16_t* isrc = a.idx + static_cast<size_t>(s) * a.Bp + b0;
+    const uint16_t* isrc =
+        a.idx + (static_cast<size_t>(p) * S + s) * a.Bp + b0;
     if constexpr (kFill != kCpAsync) {
       if (tid == 0) {
         const int R = a.box_rows, boxes = (C + R - 1) / R;
@@ -483,6 +500,12 @@ __global__ void __launch_bounds__(kStThreads, 1)
       for (int r = own, n = tid; r < C; r += kSlot, n += kStThreads) {
         cp_async16(dst + n, src + r * a.row, 16);
       }
+      if constexpr (kIdx) {
+        // idx_own is a multiple of 8: 16-byte pieces
+        for (int j = tid; j < idx_own / 8; j += kStThreads) {
+          cp_async16(dst + rows_l + j, isrc + 8 * j, 16);
+        }
+      }
     }
   };
   // offsets of chunks s0 .. s0 + kStRun - 1 of the block's hints into raw
@@ -504,7 +527,7 @@ __global__ void __launch_bounds__(kStThreads, 1)
       }
     }
   };
-  if constexpr (!kFlat) issue_run(0);
+  if constexpr (!kIdx) issue_run(0);
   for (int s = 0; s < kStStages - 1; ++s) {
     if (s < S) issue(s);
     cp_async_commit();
@@ -527,7 +550,7 @@ __global__ void __launch_bounds__(kStThreads, 1)
       cp_async_wait<kStStages - 2>();
       __syncthreads();
       XOR_CLOCK(0);
-      if constexpr (!kFlat) {
+      if constexpr (!kIdx) {
         if (u == 0) {
           // the run's row indices, two to a word, C for a skip (or a chunk
           // past S, or a hint past nb); then the next run's offsets
@@ -551,7 +574,7 @@ __global__ void __launch_bounds__(kStThreads, 1)
       cp_async_commit();
       XOR_CLOCK(2);
       const uint4* rows = ring + (s % kStStages) * stage + piece;
-      if constexpr (!kFlat) {
+      if constexpr (!kIdx) {
         const uint32_t* pair = runs + (u / 2) * kHints + own;
 #pragma unroll
         for (int i = 0; i < kSlots; ++i) {
@@ -612,15 +635,20 @@ __global__ void __launch_bounds__(256) plane_words_kernel(
                                       __ldg(src + 3 * per_row)));
 }
 
-// K7c's row indices: offsets and skip (B, S) -> idx (S, Bp) uint16, the
-// offset where it is in [0, C) and not skipped, else C, the zero row (Bp =
-// B rounded up to 8, the pad C), through a 32 x 32 tile in shared
-// memory so that both the reads and the writes are coalesced.
-__global__ void __launch_bounds__(256) flat_index_kernel(
+// K7b's and K7c's row indices: offsets and skip (P, B, S) -> idx (P, S,
+// Bp) uint16, the offset where it is in [0, C) and not skipped, else C,
+// the zero row (Bp = B rounded up to 8, the pad C), through a 32 x 32
+// tile in shared memory so that both the reads and the writes are
+// coalesced; the grid's z is the partition.
+__global__ void __launch_bounds__(256) index_kernel(
     const int32_t* __restrict__ offsets, const uint8_t* __restrict__ skip,
     uint16_t* __restrict__ idx, int B, int S, int C, int Bp) {
   __shared__ uint16_t tile[32][34];
   const int b0 = blockIdx.x * 32, s0 = blockIdx.y * 32;
+  const size_t part = static_cast<size_t>(blockIdx.z) * B * S;
+  offsets += part;
+  skip += part;
+  idx += static_cast<size_t>(blockIdx.z) * S * Bp;
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
   for (int j = ty; j < 32; j += 8) {
     const int b = b0 + j, s = s0 + tx;
@@ -818,21 +846,21 @@ extern "C" int xor_gather_row_split(const void* db, const void* offsets,
 }
 
 // Dynamic shared memory of a staged launch: the ring (stage_rows rows of L
-// uint4 a stage, then with kFlat the row indices, hb rounded up to a slot,
-// to a multiple of 128 bytes), then without kFlat the run's offsets and
+// uint4 a stage, then with kIdx the row indices, hb rounded up to a slot,
+// to a multiple of 128 bytes), then without kIdx the run's offsets and
 // the packed run, then with bulk or tensor fills the stages' mbarriers.
-template <int L, bool kFlat, Fill kFill>
+template <int L, bool kIdx, Fill kFill>
 static size_t staged_smem(int stage_rows, int hb) {
   constexpr int kSlot = kStThreads / L;
   constexpr size_t kHints = static_cast<size_t>(kStSlots) * kSlot;
-  const size_t idx_pad = kFlat ? (hb + kSlot - 1) / kSlot * kSlot : 0;
+  const size_t idx_pad = kIdx ? (hb + kSlot - 1) / kSlot * kSlot : 0;
   const size_t stage =
       (static_cast<size_t>(stage_rows) * L * sizeof(uint4) + idx_pad * 2 +
        127) / 128 * 128;
   return kStStages * stage +
-         (kFlat ? 0
-                : kHints * kStRun * sizeof(int32_t) +
-                      kStRun / 2 * kHints * sizeof(uint32_t)) +
+         (kIdx ? 0
+               : kHints * kStRun * sizeof(int32_t) +
+                     kStRun / 2 * kHints * sizeof(uint32_t)) +
          (kFill != kCpAsync ? kStStages * sizeof(uint64_t) : 0);
 }
 
@@ -878,12 +906,13 @@ static int tensor_map(StagedArgs& a, const void* base, size_t row_bytes,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Launches staged_kernel<L, kFlat, kFill> over a (P, B) output of k-row
-// entries in `slices` column slices, B in balanced hint blocks of at most
-// kHints (rounded up to 8 with kFlat, for the 16-byte index copies).
+// Launches staged_kernel<L, kIdx, kFill, kHintMajor> over a (P, B) output
+// of k-row entries in `slices` column slices, B in balanced hint blocks of
+// at most kHints (rounded up to 8 with kIdx, for the 16-byte index
+// copies).
 // Refuses (cudaErrorInvalidValue) C >= 65,535 (16-bit row indices) and a
 // ring larger than the device's opt-in shared memory.
-template <int L, bool kFlat, Fill kFill>
+template <int L, bool kIdx, Fill kFill, bool kHintMajor = false>
 static int launch_staged(StagedArgs& a, int slices, void* stream) {
   constexpr int kHints = kStSlots * (kStThreads / L);
   if (a.k < 1 || a.C < 1 || a.C >= 0xFFFF || a.S < 0 || a.P < 0 ||
@@ -894,11 +923,11 @@ static int launch_staged(StagedArgs& a, int slices, void* stream) {
   if (kFill != kTensor) a.stage_rows = a.C + 1;
   const int blocks = (a.B + kHints - 1) / kHints;
   a.hb = (a.B + blocks - 1) / blocks;   // balanced hint blocks
-  if (kFlat) a.hb = (a.hb + 7) / 8 * 8;
+  if (kIdx) a.hb = (a.hb + 7) / 8 * 8;
   if (blocks > 65535 || slices > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = staged_smem<L, kFlat, kFill>(a.stage_rows, a.hb);
+  const size_t smem = staged_smem<L, kIdx, kFill>(a.stage_rows, a.hb);
   int dev = 0, limit = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess) {
@@ -909,7 +938,7 @@ static int launch_staged(StagedArgs& a, int slices, void* stream) {
   if (smem > static_cast<size_t>(limit)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = staged_kernel<L, kFlat, kFill>;
+  auto kernel = staged_kernel<L, kIdx, kFill, kHintMajor>;
   static size_t opted = 48 * 1024;   // the size every kernel may use unasked
   if (smem > opted) {
     rc = cudaFuncSetAttribute(
@@ -918,9 +947,38 @@ static int launch_staged(StagedArgs& a, int slices, void* stream) {
     if (rc != cudaSuccess) return static_cast<int>(rc);
     opted = smem;
   }
-  const dim3 grid = kFlat ? dim3(blocks, slices, a.P)
-                          : dim3(slices, blocks, a.P);
+  const dim3 grid = kHintMajor ? dim3(blocks, slices, a.P)
+                               : dim3(slices, blocks, a.P);
   kernel<<<grid, kStThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2's chunk form and K7b's staged form read 64-byte column slices of the
+// (S, P, C*k, 128) DB.
+static StagedArgs chunk_args(const void* db, void* out, int S, int P,
+                             int C, int k, int B) {
+  StagedArgs a{};
+  a.db = static_cast<const uint4*>(db);
+  a.row = static_cast<size_t>(k) * 32;
+  a.slice = 4;
+  a.part = static_cast<size_t>(C) * k * 32;
+  a.spp = 8 * k;
+  a.out = static_cast<uint4*>(out);
+  a.S = S, a.P = P, a.C = C, a.B = B, a.k = k;
+  return a;
+}
+
+// Launches index_kernel over P partitions of (B, S) offsets and skip.
+static int launch_index(const void* offsets, const void* skip, uint16_t* idx,
+                        int P, int B, int S, int C, int Bp,
+                        cudaStream_t st) {
+  const dim3 grid((Bp + 31) / 32, (S + 31) / 32, P);
+  if (grid.y > 65535 || grid.z > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  index_kernel<<<grid, 256, 0, st>>>(static_cast<const int32_t*>(offsets),
+                                     static_cast<const uint8_t*>(skip), idx,
+                                     B, S, C, Bp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -930,26 +988,41 @@ static int launch_staged(StagedArgs& a, int slices, void* stream) {
 extern "C" int xor_gather_chunk_major(const void* db, const void* offsets,
                                       void* out, int S, int P, int C, int k,
                                       int B, void* stream) {
-  StagedArgs a{};
-  a.db = static_cast<const uint4*>(db);
-  a.row = static_cast<size_t>(k) * 32;
-  a.slice = 4;
-  a.part = static_cast<size_t>(C) * k * 32;
-  a.spp = 8 * k;
+  StagedArgs a = chunk_args(db, out, S, P, C, k, B);
   a.offsets = static_cast<const int32_t*>(offsets);
-  a.out = static_cast<uint4*>(out);
-  a.S = S, a.P = P, a.C = C, a.B = B, a.k = k;
   a.vec_off = S % 4 == 0 && reinterpret_cast<uintptr_t>(offsets) % 16 == 0;
   return launch_staged<4, false, kCpAsync>(a, 8 * k, stream);
 }
 
 // K7b. db (S, P, C*k, 128) int32; offsets (P, B, S) int32, skip (P, B, S)
-// bool; out (P, B, k, 128).
+// bool; out (P, B, k, 128). staged = 0: the warp-per-row form (scratch
+// unused); else index_kernel writes the (P, S, Bp) uint16 row indices into
+// scratch (P*S*Bp*2 bytes, Bp = B rounded up to 8) and staged_kernel runs
+// in K2's chunk geometry on them, refusing C >= 65,535 and a ring larger
+// than the device's opt-in shared memory (C above 1,735 on an H100).
 extern "C" int xor_hintgen_skip(const void* db, const void* offsets,
-                                const void* skip, void* out, int S, int P,
-                                int C, int k, int B, void* stream) {
-  return launch<GatherLaunch<true>>(db, offsets, skip, out, S, P, C, k, B,
-                                    stream);
+                                const void* skip, void* scratch, void* out,
+                                int S, int P, int C, int k, int B,
+                                int staged, void* stream) {
+  if (!staged) {
+    return launch<GatherLaunch<true>>(db, offsets, skip, out, S, P, C, k, B,
+                                      stream);
+  }
+  if (k < 1 || C < 1 || C >= 0xFFFF || S < 0 || P < 0 || B < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (P == 0 || B == 0) return 0;
+  const int Bp = (B + 7) / 8 * 8;
+  uint16_t* idx = static_cast<uint16_t*>(scratch);
+  if (S > 0) {
+    const int rc = launch_index(offsets, skip, idx, P, B, S, C, Bp,
+                                static_cast<cudaStream_t>(stream));
+    if (rc != 0) return rc;
+  }
+  StagedArgs a = chunk_args(db, out, S, P, C, k, B);
+  a.idx = idx;
+  a.Bp = Bp;
+  return launch_staged<4, true, kCpAsync>(a, 8 * k, stream);
 }
 
 // K7c. db (S, C*k, 128) int32; offsets and skip (B, S); out (B, k, 128):
@@ -957,7 +1030,7 @@ extern "C" int xor_hintgen_skip(const void* db, const void* offsets,
 // (scratch unused); else the staged form, 32-byte rows (2 lanes a hint,
 // 5,120 hints a CTA, each stage one bulk copy, the grid hint-block-major),
 // read from a slice-major copy of db (slice_major_kernel) at the start of
-// scratch, followed by the (S, Bp) uint16 row indices flat_index_kernel
+// scratch, followed by the (S, Bp) uint16 row indices index_kernel
 // writes (Bp = B rounded up to 8): S*C*k*512 + S*Bp*2 bytes. The staged
 // form refuses C >= 65,535 and a ring larger than the device's opt-in
 // shared memory (C above 3,310 on an H100).
@@ -991,12 +1064,7 @@ extern "C" int xor_scan_flat(const void* db, const void* offsets,
         static_cast<const uint4*>(db), sliced, C, W, R);
     int rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
-    const dim3 grid((Bp + 31) / 32, (S + 31) / 32);
-    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    flat_index_kernel<<<grid, 256, 0, st>>>(
-        static_cast<const int32_t*>(offsets),
-        static_cast<const uint8_t*>(skip), idx, B, S, C, Bp);
-    rc = static_cast<int>(cudaGetLastError());
+    rc = launch_index(offsets, skip, idx, 1, B, S, C, Bp, st);
     if (rc != 0) return rc;
   }
   StagedArgs a{};
@@ -1007,7 +1075,7 @@ extern "C" int xor_scan_flat(const void* db, const void* offsets,
   a.idx = idx;
   a.out = static_cast<uint4*>(out);
   a.S = S, a.P = 1, a.C = C, a.B = B, a.k = k, a.Bp = Bp;
-  return launch_staged<2, true, kBulk>(a, W / 2, stream);
+  return launch_staged<2, true, kBulk, true>(a, W / 2, stream);
 }
 
 // K7a. dbp (S, P, 4, C, k*128) int8; offsets (P, B, S) int32 with skips as

@@ -12,13 +12,14 @@ route-equivalence surfaces, each beside a plain torch version.
     with refresh_parity_np, its numpy twin.
 
 K7a-K7c are kernel K2's gather-XOR on other layouts and share its source
-(csrc/xor_gather.cu); K7d is csrc/refresh_parity.cu. K7a and K7c each run
-in one of two forms that plane_form / flat_form pick by shape: "staged"
-(K2's chunk-major structure: a chunk's column slice staged in shared
-memory and read there by a block of hints) where many hints name each
-chunk row, else "row" (a warp per output row, gathering from L2). Each
-computes the function, not the TPU mechanism: no one-hot products, no
-block padding, no zero pad rows. Each entry point takes numpy arrays or tensors and runs on
+(csrc/xor_gather.cu); K7d is csrc/refresh_parity.cu. K7a, K7b and K7c each
+run in one of two forms that plane_form / hintgen_form / flat_form pick by
+shape: "staged" (K2's chunk-major structure: a chunk's column slice staged
+in shared memory and read there by a block of hints) where many hints
+name each chunk row, else "row" (a warp per output row, gathering from
+L2). Each computes the function, not the TPU mechanism: no one-hot
+products, no block padding, no zero pad rows. Each entry point takes
+numpy arrays or tensors and runs on
 CUDA unless given device="cpu" or CPU tensors (cuda_lib.default_device); a
 CPU tensor takes the plain version, a CUDA tensor the kernel, with no
 fallback between them. u32 data are int32 tensors of the same bits
@@ -60,13 +61,18 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 # at C = 512 (its entry refuses C above 667 on an H100). K7c's holds 2 x
 # (C + 1) rows of 32 B and 16-bit row indices for up to 5,120 hints: about
 # 151 KB at C = 2,048 (C above 3,310 refused); its 16-bit indices alone
-# would allow C < 65,535. K7c's staged form also copies the DB slice-major
+# would allow C < 65,535. K7b's has K2's chunk geometry, fed K7c's way:
+# 2 x (C + 1) rows of 64 B and each chunk's 16-bit row indices for 2,560
+# hints, 76 KB at C = 512 (C above 1,735 refused); it takes K2's rule.
+# K7c's staged form also copies the DB slice-major
 # in each call, and runs one CTA a (slice, hint block): on the H100 it
 # lost to the row form at B = 9C (0.67 against 0.39 ms at C = 1,000, S =
 # 301) and at 14C (2.31 against 1.99 ms at C = 2,048, S = 492), and won at
 # 28C (3.12 against 3.96 ms); the lines through those cross near 18C.
 PLANE_STAGED_MIN_REUSE = 16
 PLANE_STAGED_MAX_C = 512
+HINTGEN_STAGED_MIN_REUSE = 16
+HINTGEN_STAGED_MAX_C = 512
 FLAT_STAGED_MIN_REUSE = 20
 FLAT_STAGED_MAX_C = 3072
 FORMS = ("staged", "row")
@@ -78,6 +84,16 @@ def plane_form(P: int, B: int, S: int, C: int, k: int) -> str:
     PLANE_STAGED_MAX_C, else "row". Deterministic, and no fallback: the
     form chosen launches or raises."""
     if B >= PLANE_STAGED_MIN_REUSE * C and C <= PLANE_STAGED_MAX_C:
+        return "staged"
+    return "row"
+
+
+def hintgen_form(P: int, B: int, S: int, C: int, k: int) -> str:
+    """K7b's form for a (P, B) output over S chunks of C entries of k rows:
+    "staged" where B >= HINTGEN_STAGED_MIN_REUSE * C and C <=
+    HINTGEN_STAGED_MAX_C (K2's gather_form rule), else "row".
+    Deterministic, and no fallback."""
+    if B >= HINTGEN_STAGED_MIN_REUSE * C and C <= HINTGEN_STAGED_MAX_C:
         return "staged"
     return "row"
 
@@ -207,9 +223,13 @@ def xor_hintgen_pallas_plain(db4: torch.Tensor, offsets: torch.Tensor,
 
 
 def xor_hintgen_pallas_cuda(db4: torch.Tensor, offsets: torch.Tensor,
-                            skip: torch.Tensor, k: int) -> torch.Tensor:
-    """Kernel K7b: xor_hintgen_pallas_plain's contract on CUDA tensors.
-    Counts its launches in xor_hintgen_pallas_cuda.launches."""
+                            skip: torch.Tensor, k: int,
+                            form: str | None = None) -> torch.Tensor:
+    """Kernel K7b: xor_hintgen_pallas_plain's contract on CUDA tensors, in
+    `form` ("staged" or "row"; None: hintgen_form's choice). The staged
+    form first writes (P, S, B) 16-bit row indices, the mask folded in,
+    into scratch allocated here (B rounded up to 8). Counts its
+    launches in xor_hintgen_pallas_cuda.launches."""
     cuda_lib.require_cuda_tensor(db4, "db4", torch.int32)
     S, P, CK, L = db4.shape
     if L != 128 or k < 1 or CK % k:
@@ -218,13 +238,18 @@ def xor_hintgen_pallas_cuda(db4: torch.Tensor, offsets: torch.Tensor,
     B = offsets.shape[1] if offsets.dim() == 3 else -1
     _require(offsets, "offsets", torch.int32, (P, B, S), db4.device)
     _require(skip, "skip", torch.bool, (P, B, S), db4.device)
+    C = CK // k
+    form = form or hintgen_form(P, B, S, C, k)
+    staged = _form_flag(form)
+    scratch = torch.empty(P * S * (-(-B // 8) * 8) if staged else 0,
+                          dtype=torch.int16, device=db4.device)
     out = torch.empty((P, B, k, L), dtype=torch.int32, device=db4.device)
     fn = cuda_lib.function("xor_gather", "xor_hintgen_skip", [
-        ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     cuda_lib.check(
         fn(db4.data_ptr(), offsets.data_ptr(), skip.data_ptr(),
-           out.data_ptr(), S, P, CK // k, k, B,
-           cuda_lib.stream_ptr(db4.device)), "xor_hintgen_skip")
+           scratch.data_ptr(), out.data_ptr(), S, P, C, k, B, staged,
+           cuda_lib.stream_ptr(db4.device)), f"xor_hintgen_skip ({form})")
     xor_hintgen_pallas_cuda.launches += 1
     return out
 

@@ -58,6 +58,18 @@ from pacmann_tpu_torch.utils.u32 import first_true, from_u32, to_u32
 # forms give identical state).
 _SCATTER_REFRESH_ROWS = 8192
 
+
+def _resolve_refresh(rows: int) -> str:
+    """The refresh form of a round of `rows` = Q*P update rows, as the JAX
+    engine resolves it: $PACMANN_REFRESH_ROUTE "auto" (the default) takes
+    the scatter up to _SCATTER_REFRESH_ROWS rows and the dense rewrite
+    above, "scatter" the scatter, any other value the dense rewrite."""
+    choice = os.environ.get("PACMANN_REFRESH_ROUTE", "auto")
+    if choice == "auto":
+        return "scatter" if rows <= _SCATTER_REFRESH_ROWS else "dense"
+    return "scatter" if choice == "scatter" else "dense"
+
+
 # Client-protocol routes, named as in the JAX engine: "xla" the owner
 # fixpoint of torch ops, "pallas" kernel K4 for the claim, "fused" kernel
 # K3 for the whole selection. "auto" is "pallas" on a CUDA device and "xla"
@@ -228,7 +240,7 @@ def _pir_finish(repl_val, bpar, table, carry, sel, resp, *, C, R, Hp, S,
     """Client unmask + Phase-C refresh given the server response resp
     (Q, P, k*128) int32 (pir.go:451-468). Writes the refreshed rows into
     the carry's tensors in place. refresh: "scatter" or "dense"; None
-    picks scatter up to _SCATTER_REFRESH_ROWS update rows. A table-free
+    reads $PACMANN_REFRESH_ROUTE (_resolve_refresh). A table-free
     selection carries the refreshed columns in sel; `table` is then
     ignored."""
     tag, prog, ppar, slot_col, hist, finished = carry
@@ -247,7 +259,7 @@ def _pir_finish(repl_val, bpar, table, carry, sel, resp, *, C, R, Hp, S,
     new_col = free_col if free_col is not None \
         else table[p_ix, btag]                                  # (Q, P, S)
     if refresh is None:
-        refresh = "scatter" if Q * P <= _SCATTER_REFRESH_ROWS else "dense"
+        refresh = _resolve_refresh(Q * P)
     if refresh == "scatter":
         # rows not served are left out (the JAX engine routes them to the
         # out-of-bounds index Hp, which its scatter drops)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B of the port's kernels K1-K5, K7a and K7c on one NVIDIA GPU.
+"""A/B of the port's kernels K1-K5 and K7a-K7c on one NVIDIA GPU.
 
 Times the kernels of this tree and of a base tree (another checkout, e.g.
 a `git archive` of the parent commit unpacked into a git-ignored
@@ -17,21 +17,22 @@ max_query_num), its replay wherever the tree's plan needs no opt-in above
 6 launch shape, replayed (the launch floor). The gather group: K2's
 chunk-major form at the 1M prep (K1's table and the skip mask) at k = 2,
 5 and 8 on random DBs; K7a on the byte planes of the k = 2 and k = 5 DBs
-with the same offsets (skips folded in); K7c on the flat single-server
-layout (B = 57,632, S = 492, C = 2,048, skip 25 %), the entry points'
-choice of form (a tree whose wrappers take a form also times the row
-form). Every result is held against its plain version. --groups picks
-"pir" (K1, K3, K4, K5) and/or "gather" (K2, K7a, K7c). With --phases it
-then times this tree's phases: K3's, from protocol.cu built with
--DK3_PHASE_CLOCKS, whose marks record the SM clock (clock64) of CTA 0 of
-partition 0 around each cluster barrier, summed over the windows; K5's
-block setup, from aes_mmo.cu built with -DAES_FILL_CLOCKS (the SM clock
-of block (0, 0) after its 64 KB image and after round 1's fold); and the
-staged gather's (K2's chunk form, K7a's and K7c's staged forms), from
-xor_gather.cu built with -DXOR_PHASE_CLOCKS (thread 0 of CTA (0, 0, 0):
-SM clocks waiting for a stage, on the offset runs, issuing copies,
-gathering, in the epilogue), with each staged call's device time per
-kernel from torch.profiler.
+with the same offsets (skips folded in); K7b on the k = 2 and k = 5 DBs
+with K1's table and the skip mask beside it; K7c on the flat
+single-server layout (B = 57,632, S = 492, C = 2,048, skip 25 %), the
+entry points' choice of form (a tree whose wrappers take a form also
+times the row form). Every result is held against its plain version.
+--groups picks "pir" (K1, K3, K4, K5) and/or "gather" (K2, K7a-K7c).
+With --phases it then times this tree's phases: K3's, from protocol.cu
+built with -DK3_PHASE_CLOCKS, whose marks record the SM clock (clock64)
+of CTA 0 of partition 0 around each cluster barrier, summed over the
+windows; K5's block setup, from aes_mmo.cu built with -DAES_FILL_CLOCKS
+(the SM clock of block (0, 0) after its 64 KB image and after round 1's
+fold); and the staged gather's (K2's chunk form, K7a's, K7b's and K7c's
+staged forms), from xor_gather.cu built with -DXOR_PHASE_CLOCKS (thread
+0 of CTA (0, 0, 0): SM clocks waiting for a stage, on the offset runs,
+issuing copies, gathering, in the epilogue), with each staged call's
+device time per kernel from torch.profiler.
 
     python3 scripts/kernel_ab.py --base DIR [--groups pir,gather] [--phases]
 
@@ -102,11 +103,11 @@ def cases(cs, aes, pk, gen) -> tuple[list, list, list, list]:
     return k1, k5, k3, k4
 
 
-def gather_cases(cs, gen) -> tuple[list, list, list]:
-    """K2, K7a and K7c cases on the card: (label, inputs...). K2 and K7a
-    share the 1M prep's offsets (K1's table, the skip mask folded in: -1
-    for K2, C for K7a) on random DBs of k rows; K7c is chip_smoke.py's flat
-    layout."""
+def gather_cases(cs, gen) -> tuple[list, list, list, list]:
+    """K2, K7a, K7b and K7c cases on the card: (label, inputs...). K2, K7a
+    and K7b share the 1M prep's offsets (K1's table; the skip mask folded
+    in, -1 for K2 and C for K7a, or beside it for K7b) on random DBs of k
+    rows; K7c is chip_smoke.py's flat layout."""
     import torch
 
     from pacmann_tpu_torch.ops import aes, attic
@@ -124,27 +125,28 @@ def gather_cases(cs, gen) -> tuple[list, list, list]:
     skip = _build_skip(P, T, Hp, R, S, "cuda")
     k2_off = torch.where(skip, -1, table).contiguous()
     k7a_off = torch.where(skip, C, table).contiguous()
-    del table, skip
-    k2, k7a = [], []
+    skip = skip.contiguous()
+    k2, k7a, k7b = [], [], []
     for k in (2, 5, 8):
         db = torch.empty((S, P, C * k, 128), dtype=torch.int32,
                          device="cuda").random_(-2**31, 2**31, generator=gen)
         k2.append((f"k={k}", db, k2_off, k))
         if k < 8:
             k7a.append((f"k={k}", attic.to_plane_major_s8(db, k), k7a_off))
+            k7b.append((f"k={k}", db, table, skip, k))
     flat = torch.empty((cs.FLAT_S, cs.FLAT_C * 2, 128), dtype=torch.int32,
                        device="cuda").random_(-2**31, 2**31, generator=gen)
     f_off = torch.randint(0, cs.FLAT_C, (cs.FLAT_B, cs.FLAT_S),
                           generator=gen, dtype=torch.int32, device="cuda")
     f_skip = torch.rand((cs.FLAT_B, cs.FLAT_S), generator=gen,
                         device="cuda") < 0.25
-    return k2, k7a, [(f"B={cs.FLAT_B}", flat, f_off, f_skip, 2)]
+    return k2, k7a, k7b, [(f"B={cs.FLAT_B}", flat, f_off, f_skip, 2)]
 
 
 def gather_turn(cs, res: dict) -> None:
-    """The gather group of one turn: K2's chunk form, K7a and K7c (the
-    entry point's form; also the row form where the wrappers take one),
-    each held against its plain version, timed with CUDA events."""
+    """The gather group of one turn: K2's chunk form, K7a, K7b and K7c
+    (the entry point's form; also the row form where the wrappers take
+    one), each held against its plain version, timed with CUDA events."""
     import inspect
 
     import torch
@@ -153,8 +155,12 @@ def gather_turn(cs, res: dict) -> None:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    k2, k7a, k7c = gather_cases(cs, gen)
-    forms = "form" in inspect.signature(attic.xor_scan_pallas_cuda).parameters
+    k2, k7a, k7b, k7c = gather_cases(cs, gen)
+
+    def takes_form(fn) -> bool:
+        return "form" in inspect.signature(fn).parameters
+
+    forms = takes_form(attic.xor_scan_pallas_cuda)
     for label, db, off, k in k2:
         got = xor_scan.xor_gather_cuda(db, off, k, form="chunk")
         cs.check(torch.equal(got, xor_scan.xor_gather_plain(db, off, k)),
@@ -173,6 +179,18 @@ def gather_turn(cs, res: dict) -> None:
             cs.check(torch.equal(call(), want),
                      f"K7a{form} {label} differs from its plain version")
             res[f"K7a{form} {label}"] = (cs.cuda_ms(call, 5), None)
+        del want
+    for label, db, table, skip, k in k7b:
+        want = attic.xor_hintgen_pallas_plain(db, table, skip, k)
+        calls = {"": lambda: attic.xor_hintgen_pallas_cuda(db, table, skip,
+                                                           k)}
+        if takes_form(attic.xor_hintgen_pallas_cuda):
+            calls[" row"] = lambda: attic.xor_hintgen_pallas_cuda(
+                db, table, skip, k, form="row")
+        for form, call in calls.items():
+            cs.check(torch.equal(call(), want),
+                     f"K7b{form} {label} differs from its plain version")
+            res[f"K7b{form} {label}"] = (cs.cuda_ms(call, 5), None)
         del want
     for label, db, off, skip, k in k7c:
         want = attic.xor_scan_pallas_plain(db, off, skip, k)
@@ -285,13 +303,17 @@ def gather_phases(cs, nvcc: str) -> dict:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    k2, k7a, k7c = gather_cases(cs, gen)
+    k2, k7a, k7b, k7c = gather_cases(cs, gen)
     calls = {f"K2 chunk {label}": (
         lambda db=db, off=off, k=k: xor_scan.xor_gather_cuda(
             db, off, k, form="chunk")) for label, db, off, k in k2}
     calls.update({f"K7a staged {label}": (
         lambda dbp=dbp, off=off: attic.xor_hintgen_mm_s8p_cuda(
             dbp, off, form="staged")) for label, dbp, off in k7a})
+    calls.update({f"K7b staged {label}": (
+        lambda db=db, table=table, skip=skip, k=k:
+        attic.xor_hintgen_pallas_cuda(db, table, skip, k, form="staged"))
+        for label, db, table, skip, k in k7b})
     calls.update({f"K7c staged {label}": (
         lambda db=db, off=off, skip=skip, k=k: attic.xor_scan_pallas_cuda(
             db, off, skip, k, form="staged"))
@@ -442,7 +464,7 @@ def main() -> int:
                     help="root of the base tree (holds pacmann_tpu_torch)")
     ap.add_argument("--groups", default="pir,gather",
                     help="comma-separated: pir (K1, K3, K4, K5), gather "
-                    "(K2, K7a, K7c)")
+                    "(K2, K7a-K7c)")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--turn", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--out", type=Path, help=argparse.SUPPRESS)

@@ -218,6 +218,23 @@ def test_plane_form_rule(P, B, C, form):
     assert attic.plane_form(P, B, 124, C, 2) == form
 
 
+_C7B = attic.HINTGEN_STAGED_MAX_C
+
+
+@pytest.mark.parametrize("P,B,C,form", [
+    (16, 16 * 512, 512, "staged"), (16, 16 * 512 - 1, 512, "row"),
+    (16, 16 * _C7B + 16, _C7B + 1, "row"), (16, 12512, 512, "staged"),
+    (16, 16 * 513, 513, "row"), (1, 16 * 33, 33, "staged"),
+    (1, 16 * 33 - 1, 33, "row"), (16, 96, 512, "row"),
+    (16, 35_552, 2048, "row")])
+def test_hintgen_form_rule(P, B, C, form):
+    """K7b's form by shape, K2's rule: staged from B = 16C up, C <= 512
+    (the fused engine's prep at SIFT1M, (16, 12,512) at C = 512, is
+    staged; the 5M shape's C = 2,048 is not)."""
+    assert _C7B == 512
+    assert attic.hintgen_form(P, B, 124, C, 2) == form
+
+
 @pytest.mark.parametrize("B,C,form", [
     (20 * 2048, 2048, "staged"), (20 * 2048 - 1, 2048, "row"),
     (57_632, 2048, "staged"), (28_816, 2048, "row"),

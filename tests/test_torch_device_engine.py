@@ -177,3 +177,45 @@ def test_build_skip_matches_reference():
     want = np.asarray(_build_skip(P, T, Hp, R, S)).reshape(P, T, S)
     got = tde._build_skip(P, T, Hp, R, S, torch.device("cpu"))
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("route,Q,want", [
+    ("dense", 16, "dense"), ("scatter", 16, "scatter"),
+    ("something", 16, "dense"), (None, 16, "scatter"), (None, 520, "dense")])
+def test_refresh_route_follows_environment(monkeypatch, route, Q, want):
+    """$PACMANN_REFRESH_ROUTE picks the refresh form as the JAX engine's
+    _resolve_refresh does: "auto" (unset) by Q*P (Q = 520 over 16
+    partitions is 8,320 rows, past the scatter's 8,192), "scatter" the
+    scatter, any other value the dense rewrite. A spy shows the form the
+    port ran; the state equals the JAX engine's under the same
+    variable."""
+    from pacmann_tpu.pir import device_engine as jde
+
+    if route is None:
+        monkeypatch.delenv("PACMANN_REFRESH_ROUTE", raising=False)
+    else:
+        monkeypatch.setenv("PACMANN_REFRESH_ROUTE", route)
+    ran = []
+    resolve = tde._resolve_refresh
+    monkeypatch.setattr(tde, "_resolve_refresh",
+                        lambda rows: ran.append(resolve(rows)) or ran[-1])
+    raw, ref, got = _pair(n=2048, seed=14, prep_seed=104)
+    p = ref.params
+    P = ref.config.partition_num
+    rng = np.random.default_rng(15)
+    idx_q = rng.integers(0, ref.config.partition_size, size=(Q, P)).astype(
+        np.int32)
+    idx_q[8:] = -1                       # dummies past the first rounds
+    rand_offs = (rng.integers(0, 2**32, size=(Q, P, p.set_size),
+                              dtype=np.uint64)
+                 & np.uint64(p.chunk_mask)).astype(np.uint32)
+    ref.state, e_ref, ok_ref = ref._online(idx_q, rand_offs)
+    e_got, ok_got = got._online(idx_q, rand_offs)
+    # the JAX engine takes the scatter where its resolution is "scatter"
+    # and the dense rewrite otherwise (device_engine.py:422)
+    jax_form = jde._resolve_refresh(None, Q * P)
+    assert ran == [want] == ["scatter" if jax_form == "scatter" else "dense"]
+    assert np.array_equal(ok_got.numpy(), np.asarray(ok_ref))
+    assert np.array_equal(e_got.numpy().view(np.uint32), np.asarray(e_ref))
+    assert int(ok_got.sum()) > 0
+    _assert_same_state(ref, got)
