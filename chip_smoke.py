@@ -25,7 +25,8 @@ queries). Phases, in order:
      graph beside an empty kernel of its Q = 6 launch shape (the launch
      floor), and on a ragged (3, 1,001) list with half its tags at or
      above 2^29; K3 (select_full) and K4 (claim_select), one claim pass,
-     at Q = 6, 96 and 384 on uniform, contended, budget-edge and deep
+     at Q = 6, 96 and 384 and at the private driver's quotas
+     (private_quotas: 48 for its group-8 "device-fused" run) on uniform, contended, budget-edge and deep
      rounds (more than the kept candidates contend for one row, so the
      walk scans rows on; Q = 384 spans two windows), also replayed from a
      CUDA graph (uniform and deep), each case with the rounds that took a
@@ -35,7 +36,8 @@ queries). Phases, in order:
      also at a synthetic S = 8,192 whose shared-memory plan passes 48 KiB
      (opted in, a cluster of 8);
      K2 (xor_gather) in both its forms
-     (chunk-major and row-split) at the prep, Q = 6 and Q = 96 shapes,
+     (chunk-major and row-split) at the prep, Q = 6, 96 and the private
+     driver's quotas (48),
      at B = 16C - 1 and 16C (the two sides of gather_form's switch), at
      a ragged shape (S = 13, k = 3, B = 5,000, all-skip rows) and, row
      form only, at the 5M pin's prep (C = 2,048); K6 (l2_distance) at
@@ -87,7 +89,20 @@ queries). Phases, in order:
      wrappers picked: PianoPIR and SimpleBatchPianoPIR launch K1 and K7c
      (staged at prep, row per query) and FusedBatchPianoPIR K1, K7b
      (staged) and K2 (row-split), prep ms, ms per query or batch, every
-     served row its raw row, success against the model; then the repair
+     served row its raw row, success against the model; then the private
+     driver (private_search_phase): run_private_search on every engine on
+     CUDA against the CPU at n = 16,384 (the same answers, reach steps and
+     success), then at scripts/run-private-search.sh's deployment (1M x
+     640 B, k = 10, step 20, parallel 3; the driver's synthetic vectors and
+     random graph; q cut to 2-100 a run): "device-fused" (route "fused",
+     concurrent 8), "device" ("pallas"), "fused" (sequential, concurrent 8
+     and traced by -profile for the device's busy share), "simple" and
+     non-private, each with its exact kernels (simple K1 + K7c; fused K1 +
+     K7b + K2; device and device-fused K1 + K2 + K4 or K3; non-private its
+     engine's prep only), success against the model or above 0.7, the
+     report's fields; private recall on the exact 32-NN graph of 131,072
+     vectors within 0.15 of non-private recall; cli.private_search.main once
+     with -report and -profile (a trace naming K2); then the repair
      pins on the engine, each DB freed before the next: n = 1M entries of
      3,968 B (k = 8, 4.16 GB packed) on route "xla", and n = 5M entries of
      640 B
@@ -107,7 +122,8 @@ queries). Phases, in order:
      engine's "fused" K3, every table-free path K5, and no path another
      route's kernel nor K6; every plaintext path K6 and no PIR kernel; no
      DevicePianoEngine, fused-search or plaintext path an attic kernel;
-     the host-state engines exactly the kernels above; then
+     the host-state engines and the private driver's paths exactly the
+     kernels above; then
      _pir_select's time per call on each route.
 
 Prints a JSON line of per-kernel results, then as its last line
@@ -126,6 +142,7 @@ import argparse
 import collections
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1901,10 +1918,8 @@ def engine_phase(engine, raw: np.ndarray, seed: int, preps: int = 3,
 
 
 def fused_phase(fs, G: int, reps: int, seed: int) -> dict:
-    """One warm and `reps` timed searches of a G-query group."""
-    from pacmann_tpu_torch.pir.params import expected_success_rate
-
-    e = fs.engine
+    """One warm and `reps` timed searches of a G-query group (20 steps,
+    parallel 3), fetch success within 0.03 of the model."""
     rng = np.random.default_rng(seed)
     q = rng.random((G, DIM), dtype=np.float32)
     fs.search(q, k=10, max_step=20, parallel=3)                  # warm
@@ -1919,20 +1934,13 @@ def fused_phase(fs, G: int, reps: int, seed: int) -> dict:
         comp.append(time.perf_counter() - t0 - fs.last_maintenance_s)
         check(ids.shape == (G, 10) and ((ids >= 0) & (ids < fs.n)).all(),
               f"group {G}: answers are not {G}x10 valid ids")
-    P = e.config.partition_num
-    quota = G * 3 * M // P
-    want_step = int(round(fs.fetch_stats[0] / (reps * 20)))
-    bound = expected_success_rate(want_step, P, quota, FAIL)
-    succ = fs.fetch_success_rate()
     ms_q = [c * 1e3 / G for c in comp]
+    succ, bound = fused_fetch_check(fs, G, reps, f"group {G}")
     print(f"fused group {G}: ms/query median {np.median(ms_q):.3f}, min "
           f"{min(ms_q):.3f} ({reps} searches of 20 steps); maintenance "
           f"{fs.maintenance_s * 1e3 / (reps * G):.3f} ms/query over "
           f"{fs.refreshes} refreshes; fetch success {succ:.4f} vs bound "
-          f"{bound:.4f} (wanted/step {want_step}, quota {quota})")
-    check(abs(succ - bound) <= 0.03,
-          f"group {G}: fetch success {succ:.4f} is not within 0.03 of "
-          f"the bound {bound:.4f}")
+          f"{bound:.4f}")
     return dict(ms_per_query=ms_q, fetch_success=succ, bound=bound,
                 refreshes=fs.refreshes)
 
@@ -2161,6 +2169,19 @@ def plaintext_phase(seed: int) -> dict:
                 ms_per_query=med * 1e3 / L2_Q, recall=rec)
 
 
+def exact_knn_graph(vt) -> np.ndarray:
+    """The exact M-NN graph of the (n, DIM) tensor vt, self dropped (the
+    farthest neighbour where a point has an equal twin before itself), by
+    brute_force_knn on vt's device: (n, M) int64."""
+    from pacmann_tpu_torch.graph.recall import brute_force_knn
+
+    n = vt.shape[0]
+    knn = brute_force_knn(vt, vt, M + 1)
+    is_self = knn == np.arange(n)[:, None]
+    is_self[~is_self.any(axis=1), -1] = True
+    return knn[~is_self].reshape(n, M)
+
+
 def knn_graph_phase(seed: int) -> dict:
     """Recall on a real graph: n = 131,072 integer-valued manifold vectors,
     their exact 32-NN graph (self dropped) from brute_force_knn through K6
@@ -2178,11 +2199,8 @@ def knn_graph_phase(seed: int) -> dict:
     q = manifold_vectors(rng, basis, L2_Q)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    knn = brute_force_knn(vt, vt, M + 1)
+    graph = exact_knn_graph(vt)
     build_s = time.perf_counter() - t0
-    is_self = knn == np.arange(KNN_N)[:, None]
-    is_self[~is_self.any(axis=1), -1] = True
-    graph = knn[~is_self].reshape(KNN_N, M)
     gnd = brute_force_knn(vt, q, 10)
     rec = {}
     for name, gr in (("knn", graph),
@@ -2198,6 +2216,448 @@ def knn_graph_phase(seed: int) -> dict:
           f"graph's {rec['random']:.4f}")
     return dict(build_s=build_s, recall_knn=rec["knn"],
                 recall_random=rec["random"])
+
+
+# the private driver (pacmann_tpu_torch/private/driver.py) at
+# scripts/run-private-search.sh's deployment: n = N, d = DIM, m = M (640 B
+# entries), k = 10, step 20, parallel 3, rtt 50 ms, FailureProbLog2 8;
+# each run's q is the only cut. (label, engine, protocol route, q,
+# concurrent, non_private, profiled); the route is the device engines'
+# ($PACMANN_PROTOCOL_ROUTE: "fused" runs K3, "pallas" K4)
+PRIVATE_K, PRIVATE_STEP, PRIVATE_PARALLEL, PRIVATE_RTT = 10, 20, 3, 50.0
+PRIVATE_RUNS = (
+    ("device-fused", "device-fused", "fused", 100, 8, False, False),
+    ("device", "device", "pallas", 20, 1, False, False),
+    ("fused", "fused", None, 20, 1, False, False),
+    ("fused concurrent", "fused", None, 20, 8, False, False),
+    ("fused profiled", "fused", None, 2, 1, False, True),
+    ("simple", "simple", None, 10, 1, False, False),
+    ("non_private", "device-fused", None, 100, 8, True, False),
+)
+
+
+def private_quotas(P: int) -> tuple:
+    """The sub-queries a partition that K2, K3 and K4 see in a round of
+    each device-engine run of PRIVATE_RUNS over P partitions: a step's
+    group x PRIVATE_PARALLEL x M ids over P ("device" queries one beam at
+    a time, group 1)."""
+    return tuple(sorted({(group if engine == "device-fused" else 1)
+                         * PRIVATE_PARALLEL * M // P
+                         for _, engine, _, _, group, non_private, _
+                         in PRIVATE_RUNS
+                         if engine.startswith("device") and not non_private}))
+
+
+# CUDA against the CPU (PRIVATE_SMALL_Q queries of PRIVATE_SMALL_STEP
+# steps: the CPU side takes most of the phase) and the CLI: n = 16,384
+# integer-valued vectors and their exact graph; recall: KNN_N manifold
+# vectors, PRIVATE_RECALL_Q queries
+PRIVATE_SMALL_N, PRIVATE_SMALL_Q, PRIVATE_SMALL_STEP = 16_384, 3, 10
+PRIVATE_RECALL_Q = 100
+# K2's row-split kernel, the fused engine's batch scan, as a trace names it
+K2_ROW_KERNEL = "row_split_kernel"
+
+
+@contextlib.contextmanager
+def protocol_route(route):
+    """$PACMANN_PROTOCOL_ROUTE set to `route` (None: unset) while the block
+    runs, restored on leaving."""
+    saved = os.environ.pop("PACMANN_PROTOCOL_ROUTE", None)
+    if route is not None:
+        os.environ["PACMANN_PROTOCOL_ROUTE"] = route
+    try:
+        yield
+    finally:
+        os.environ.pop("PACMANN_PROTOCOL_ROUTE", None)
+        if saved is not None:
+            os.environ["PACMANN_PROTOCOL_ROUTE"] = saved
+
+
+@contextlib.contextmanager
+def pinned_randbits(start: int):
+    """secrets.randbits as a counter from `start` while the block runs: the
+    host engines re-key a refresh from it, so two runs see the same keys."""
+    import itertools
+    import secrets
+
+    saved = secrets.randbits
+    seq = itertools.count(start)
+    secrets.randbits = lambda k: next(seq)
+    try:
+        yield
+    finally:
+        secrets.randbits = saved
+
+
+@contextlib.contextmanager
+def fused_searches():
+    """Records the FusedPrivateSearch objects made while the block runs
+    (the driver's device-fused search, for its fetch counters)."""
+    from pacmann_tpu_torch.private import fused_search
+
+    made = []
+    cls = fused_search.FusedPrivateSearch
+
+    class Recorded(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    fused_search.FusedPrivateSearch = Recorded
+    try:
+        yield made
+    finally:
+        fused_search.FusedPrivateSearch = cls
+
+
+def private_config(**kw):
+    """The driver's config at the canonical flags, `kw` on top."""
+    from pacmann_tpu_torch.private.driver import PrivateSearchConfig
+
+    base = dict(dim=DIM, m=M, k=PRIVATE_K, max_step=PRIVATE_STEP,
+                parallel=PRIVATE_PARALLEL, rtt_ms=PRIVATE_RTT,
+                failure_prob_log2=FAIL, build_graph=False)
+    return PrivateSearchConfig(**{**base, **kw})
+
+
+def numpy_step_randoms(cfg):
+    """A step_randoms_fn for the driver: each device-fused search's step
+    randoms from np.random.default_rng(seed), the same on every device."""
+    from pacmann_tpu_torch.pir.params import (derive_batch_params,
+                                              derive_piano_params)
+
+    c = derive_batch_params(cfg.n, 4 * (cfg.dim + cfg.m), cfg.m,
+                            cfg.failure_prob_log2)
+    p = derive_piano_params(c.partition_size, 4 * (cfg.dim + cfg.m),
+                            cfg.failure_prob_log2)
+    P = c.partition_num
+
+    def draw(seed, Qn):
+        r = np.random.default_rng(seed)
+        quota = Qn * cfg.parallel * cfg.m // P
+        return (r.integers(0, cfg.n, (cfg.max_step, Qn, cfg.parallel, cfg.m),
+                           dtype=np.int32),
+                r.integers(0, p.chunk_size, (cfg.max_step, quota, P,
+                                             p.set_size), dtype=np.int32))
+    return draw
+
+
+def fused_fetch_check(fs, group: int, searches: int, label: str) -> tuple:
+    """A device-fused search's fetch success over `searches` searches of
+    `group` queries and PRIVATE_STEP steps each, within 0.03 of
+    expected_success_rate at its wanted fetches a step and quota. Returns
+    (success, bound)."""
+    from pacmann_tpu_torch.pir.params import expected_success_rate
+
+    P = fs.engine.config.partition_num
+    quota = group * PRIVATE_PARALLEL * M // P
+    want_step = int(round(fs.fetch_stats[0] / (searches * PRIVATE_STEP)))
+    bound = expected_success_rate(want_step, P, quota, FAIL)
+    succ = fs.fetch_success_rate()
+    check(abs(succ - bound) <= 0.03, f"{label}: fetch success {succ:.4f} "
+          f"is not within 0.03 of the bound {bound:.4f}")
+    return succ, bound
+
+
+def private_parity(seed: int, v: np.ndarray, graph: np.ndarray) -> None:
+    """run_private_search on CUDA against the CPU (plain versions) at n =
+    PRIVATE_SMALL_N on every engine: the same answers, reach steps and
+    success rate. "device" on route "pallas" (K4), "device-fused" on
+    "fused" (K3), both with the same step randoms (numpy_step_randoms); the
+    host engines' refresh keys pinned (pinned_randbits)."""
+    from pacmann_tpu_torch.private import driver
+
+    rng = np.random.default_rng(seed)
+    q = int_vectors(rng, PRIVATE_SMALL_Q).astype(np.float32)
+    n = v.shape[0]
+    cases = (("simple", dict(engine="simple"), None),
+             ("fused", dict(engine="fused"), None),
+             ("device", dict(engine="device"), "pallas"),
+             ("device-fused", dict(engine="device-fused"), "fused"),
+             ("device-fused concurrent",
+              dict(engine="device-fused", concurrent=8), "fused"),
+             ("fused concurrent", dict(engine="fused", concurrent=8), None),
+             ("device-fused benchmarking",
+              dict(engine="device-fused", benchmarking=True), "fused"))
+    for label, kw, route in cases:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            cfg = private_config(n=n, q=len(q), seed=seed, device=dev,
+                                 max_step=PRIVATE_SMALL_STEP, **kw)
+            fn = (numpy_step_randoms(cfg) if cfg.engine == "device-fused"
+                  else None)
+            t0 = time.perf_counter()
+            with protocol_route(route), pinned_randbits(seed):
+                out[dev] = driver.run_private_search(cfg, v, graph, q,
+                                                     step_randoms_fn=fn)
+            out[dev + " s"] = time.perf_counter() - t0
+        a, b = out["cuda"], out["cpu"]
+        check(np.array_equal(a.answers, b.answers)
+              and np.array_equal(a.reach_steps, b.reach_steps)
+              and a.success_rate == b.success_rate,
+              f"private parity {label}: CUDA differs from the CPU")
+        if not kw.get("benchmarking"):
+            check((a.answers >= 0).mean() > 0.9,
+                  f"private parity {label}: answers missing")
+        print(f"private parity {label} n={n} q={len(q)}: CUDA == CPU "
+              f"(answers, reach steps, success {a.success_rate:.4f}); "
+              f"{out['cuda s']:.2f} s on CUDA, {out['cpu s']:.2f} s on the "
+              "CPU")
+
+
+def private_run_line(label: str, cfg, res, got: dict, extra: str) -> dict:
+    r = res.report
+    row = dict(q=cfg.q, concurrent=cfg.concurrent, prep_s=res.prep_time_s,
+               avg_compute_s_per_q=res.avg_query_time_s,
+               maintenance_s=res.maintenance_time_s,
+               success=res.success_rate, window=r.window_size,
+               storage_mb=r.storage_bytes / 2**20,
+               extra_storage_mb=r.extra_storage_bytes / 2**20,
+               offline_comm_per_batch_b=r.offline_comm_per_batch_bytes,
+               online_comm_per_batch_b=r.online_comm_per_batch_bytes,
+               launches={k: c for k, c in got.items() if c})
+    print(f"private {label} n={cfg.n} q={cfg.q} concurrent={cfg.concurrent}"
+          f": prep {res.prep_time_s:.4f} s, avg compute "
+          f"{res.avg_query_time_s:.5f} s/query, maintenance "
+          f"{res.maintenance_time_s:.4f} s, {extra}; report: window "
+          f"{r.window_size}, storage {row['storage_mb']:.3f} MB, extra "
+          f"{row['extra_storage_mb']:.3f} MB, offline comm/batch "
+          f"{r.offline_comm_per_batch_bytes} B, online comm/batch "
+          f"{r.online_comm_per_batch_bytes} B; launches {row['launches']}")
+    return row
+
+
+def trace_device(path) -> tuple[float, list]:
+    """From a Chrome trace of torch.profiler: the device's busy time in s
+    (the union of its kernel, copy and set intervals) and the names of the
+    kernels it ran."""
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                 for e in events if e.get("cat") in (
+                     "kernel", "gpu_memcpy", "gpu_memset"))
+    busy_us, end = 0.0, -1.0
+    for a, b in dev:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return busy_us * 1e-6, names
+
+
+def private_search_phase(seed: int, reset, counted) -> tuple[dict, dict]:
+    """The private driver, run_private_search, the way a user runs it:
+      1. private_parity: every engine on CUDA against the CPU at n =
+         PRIVATE_SMALL_N (integer-valued vectors, their exact M-NN graph);
+      2. the canonical deployment at full width (N x 640 B, the driver's
+         own synthetic vectors and queries, gen_random_matrix, and its
+         random graph, build_graph=False: recall is meaningless there, so
+         this checks fetch success, launches and the report), each of
+         PRIVATE_RUNS with the launch counters set to 0 just before and
+         read just after, each engine's DB freed before the next: the
+         exact kernels of its engine (simple: K1 and K7c; fused: K1, K7b
+         and K2; device and device-fused: K1, K2 and the route's K4 or K3;
+         non_private: its engine's prep only (JAX's PIRGraphOracle
+         preprocesses in non-private mode too) and no kernel in the query
+         loop), success within 0.03 of expected_success_rate
+         (device-fused's fetch counters) or above 0.7; "fused profiled"
+         traces its query loop (-profile): the device's time a query
+         from the trace over the unprofiled "fused" run's compute time a
+         query is the device's busy share (the profiler slows the host);
+      3. recall on the exact M-NN graph of KNN_N manifold vectors:
+         "device-fused" and "fused" private recall at least non-private
+         recall - 0.15 on the same graph, queries and seed, success above
+         0.7 (tests/test_private_search.py's bars);
+      4. cli.private_search.main once at n = PRIVATE_SMALL_N with -input,
+         -graph, -report and -profile: the report file holds every field,
+         the trace names K2's batch kernel.
+    Returns (results, launches)."""
+    import math
+    import shutil
+
+    import torch
+
+    from pacmann_tpu_torch.cli import private_search as cli
+    from pacmann_tpu_torch.graph.recall import brute_force_knn
+    from pacmann_tpu_torch.io.loaders import save_int_matrix
+    from pacmann_tpu_torch.io.report import PrivateSearchReport
+    from pacmann_tpu_torch.private import driver
+
+    t_phase = time.perf_counter()
+    res, launches = {}, {}
+    rng = np.random.default_rng(seed)
+    small_v = torch.from_numpy(int_vectors(rng, PRIVATE_SMALL_N)).cuda()
+    small_v = small_v.float()
+    small_g = exact_knn_graph(small_v)
+    small_v = small_v.cpu().numpy()
+    private_parity(seed + 1, small_v, small_g)
+
+    # 2. the canonical deployment
+    out_dir = Path("chiprun_out")
+    prof_dir = out_dir / "private_profile"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    q_max = max(run[3] for run in PRIVATE_RUNS)
+    t0 = time.perf_counter()
+    vectors, graph, queries = driver._load_or_make_inputs(
+        private_config(n=N, q=q_max, seed=seed), np.random.default_rng(seed))
+    print(f"private inputs n={N}: gen_random_matrix / gen_random_graph "
+          f"{time.perf_counter() - t0:.2f} s")
+    own_of = {"simple": ("aes_mmo_tables", "xor_scan_pallas"),
+              "fused": ("aes_mmo_tables", "xor_hintgen_pallas",
+                        "xor_gather"),
+              "pallas": ("aes_mmo_tables", "xor_gather", "claim_select"),
+              "fused route": ("aes_mmo_tables", "xor_gather",
+                              "select_full")}
+    for label, engine, route, q, group, non_private, profiled in PRIVATE_RUNS:
+        path = f"private {label}"
+        print(f"-- path {path}")
+        cfg = private_config(n=N, q=q, seed=seed, engine=engine,
+                             concurrent=group, non_private=non_private,
+                             profile_dir=str(prof_dir) if profiled else "")
+        torch.cuda.empty_cache()
+        reset()
+        with protocol_route(route), fused_searches() as made:
+            r = driver.run_private_search(cfg, vectors, graph, queries[:q])
+        groups = math.ceil(q / group)
+        check(r.answers.shape == (q, PRIVATE_K)
+              and ((r.answers >= -1) & (r.answers < N)).all(),
+              f"{path}: answers are not {q}x{PRIVATE_K} ids")
+        if non_private or engine == "simple":
+            own = own_of["simple"]
+        elif engine == "fused":
+            own = own_of["fused"]
+        else:
+            own = own_of["fused route" if route == "fused" else route]
+        launches[path] = got = counted(path, own)
+        k1 = got["aes_mmo_tables"]
+        P = BATCH // 2
+        if non_private:
+            # the prep of its engine (SimpleBatchPianoPIR: one K1 and one
+            # K7c a partition) and nothing in the query loop
+            check(k1 == P and got["xor_scan_pallas"] == P,
+                  f"{path}: launches {got}: not one prep")
+            extra = "no kernel in the query loop"
+            preps = 1
+        elif engine == "simple":
+            # a K1 and a K7c a partition's prep, a K7c a sub-query
+            rows = got["xor_scan_pallas"] - k1
+            check(k1 % P == 0 and rows > 0, f"{path}: launches {got}")
+            preps = k1 // P
+            extra = f"{rows} K7c sub-query launches"
+        elif engine == "fused":
+            check(got["xor_hintgen_pallas"] == k1
+                  and got["xor_gather"] == groups * PRIVATE_STEP,
+                  f"{path}: launches {got}: not one K7b a prep and one K2 "
+                  f"a batch ({groups * PRIVATE_STEP})")
+            preps = k1
+            extra = f"{groups * PRIVATE_STEP} batches"
+        else:
+            rounds = got["claim_select"] + got["select_full"]
+            check(got["xor_gather"] == k1 + rounds,
+                  f"{path}: launches {got}: K2 is not one a prep and one "
+                  "a round")
+            preps = k1
+            extra = f"{rounds} rounds"
+            if engine == "device-fused":
+                check(len(made) == 1, f"{path}: {len(made)} searches made")
+                fs = made[0]
+                check(rounds == (groups + 1) * PRIVATE_STEP,
+                      f"{path}: {rounds} rounds, not one a step of "
+                      f"{groups + 1} searches")
+                succ, bound = fused_fetch_check(fs, group, groups + 1, path)
+                extra += (f", fetch success {succ:.4f} (bound {bound:.4f}), "
+                          f"{fs.refreshes} refreshes in the search")
+        if not non_private and engine != "device-fused":
+            check(r.success_rate > 0.7, f"{path}: success "
+                  f"{r.success_rate:.4f} is not above 0.7")
+            extra += f", success {r.success_rate:.4f}"
+        extra += f", {preps - 1} refreshes after the first prep"
+        res[label] = private_run_line(label, cfg, r, got, extra)
+        if profiled:
+            traces = list(prof_dir.glob("*.json"))
+            check(len(traces) == 1, f"{path}: {len(traces)} traces")
+            dev_s, names = trace_device(traces[0])
+            check(any(K2_ROW_KERNEL in nm for nm in names),
+                  f"{path}: the trace names no K2 launch")
+            busy = dev_s / q / res["fused"]["avg_compute_s_per_q"]
+            res[label].update(device_s_per_q=dev_s / q, busy=busy)
+            print(f"{path}: device time {dev_s / q * 1e3:.3f} ms a query "
+                  f"({len(names)} kernels in the trace), busy {busy:.5f} of "
+                  f"the unprofiled \"fused\" run's compute time a query")
+        del r, made
+    del vectors, graph, queries
+    torch.cuda.empty_cache()
+
+    # 3. recall on a real graph
+    rng = np.random.default_rng(seed + 2)
+    basis = rng.standard_normal((12, DIM), dtype=np.float32)
+    vt = torch.from_numpy(manifold_vectors(rng, basis, KNN_N)).cuda().float()
+    q = manifold_vectors(rng, basis, PRIVATE_RECALL_Q).astype(np.float32)
+    kg = exact_knn_graph(vt)
+    gnd = brute_force_knn(vt, q, PRIVATE_K)
+    kv = vt.cpu().numpy()
+    del vt
+    rec = {}
+    for label, engine, route, nonp in (
+            ("non_private", "device-fused", None, True),
+            ("device-fused", "device-fused", "fused", False),
+            ("fused", "fused", None, False)):
+        cfg = private_config(n=KNN_N, q=len(q), seed=seed, engine=engine,
+                             concurrent=8, non_private=nonp)
+        with protocol_route(route), fused_searches() as made:
+            r = driver.run_private_search(cfg, kv, kg, q, gnd=gnd)
+        succ = r.success_rate
+        if made:
+            succ = fused_fetch_check(made[0], 8, math.ceil(len(q) / 8) + 1,
+                                     f"recall {label}")[0]
+        rec[label] = dict(recall=r.recall, success=succ,
+                          avg_compute_s_per_q=r.avg_query_time_s)
+        print(f"private recall {label} n={KNN_N} q={len(q)} concurrent=8: "
+              f"recall@10 {r.recall:.4f}, success {succ:.4f}, avg compute "
+              f"{r.avg_query_time_s:.5f} s/query")
+        if not nonp:
+            check(r.recall >= rec["non_private"]["recall"] - 0.15,
+                  f"recall {label}: {r.recall:.4f} is more than 0.15 below "
+                  f"non-private's {rec['non_private']['recall']:.4f}")
+            check(succ > 0.7, f"recall {label}: success {succ:.4f}")
+    res["recall"] = rec
+    del kv, kg
+    torch.cuda.empty_cache()
+
+    # 4. the CLI once
+    cli_dir = out_dir / "private_cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    cli_dir.mkdir(parents=True)
+    np.save(cli_dir / "vectors.npy", small_v)
+    save_int_matrix(str(cli_dir / "graph.npy"), small_g)
+    argv = ["-n", str(PRIVATE_SMALL_N), "-d", str(DIM), "-m", str(M),
+            "-q", "10", "-input", str(cli_dir / "vectors.npy"),
+            "-graph", str(cli_dir / "graph.npy"),
+            "-report", str(cli_dir / "report.txt"),
+            "-profile", str(cli_dir / "profile"), "-seed", str(seed)]
+    check(cli.main(argv) == 0, "cli.private_search.main failed")
+    fields = {}
+    for ln in (cli_dir / "report.txt").read_text().splitlines():
+        if ln.startswith("** "):
+            name, value = ln[3:].rsplit(": ", 1)
+            fields[name] = float(value)
+    want = [ln[3:].rsplit(": ", 1)[0] for ln in PrivateSearchReport(
+        *([0] * 13)).render().splitlines() if ln.startswith("** ")]
+    check(sorted(fields) == sorted(want),
+          f"CLI report fields {sorted(fields)} are not {sorted(want)}")
+    traces = list((cli_dir / "profile").glob("*.json"))
+    check(len(traces) == 1, f"CLI: {len(traces)} profile traces")
+    dev_s, names = trace_device(traces[0])
+    check(any(K2_ROW_KERNEL in nm for nm in names),
+          "CLI: the profile trace names no K2 launch")
+    (cli_dir / "vectors.npy").unlink()
+    (cli_dir / "graph.npy").unlink()
+    res["cli"] = dict(fields=fields, device_s=dev_s, kernels=len(names))
+    print(f"private CLI n={PRIVATE_SMALL_N}: report with all {len(fields)} "
+          f"fields, trace with {len(names)} kernels (K2 among them), "
+          f"device time {dev_s * 1e3:.3f} ms")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"private search phase: {res['seconds']:.1f} s")
+    return res, launches
 
 
 def gpu_line() -> str:
@@ -2318,9 +2778,12 @@ def main() -> int:
                          "ragged", reps=10, plain_reps=1)[0]
     k5 = compare_k5(k1_rk, table, p, (6, 96), args.seed + 15)
     skip = _build_skip(P, T, Hp, R, S, engine.device)
-    k2 = compare_k2(engine.db, table, skip, (6, 96), args.seed + 11)
-    k34 = compare_protocol(table, p, P, c.partition_size, (6, 96, 384),
-                           args.seed + 13)
+    # the bench shapes and the private driver's (group 8: Q = 48)
+    pq = private_quotas(P)
+    k2 = compare_k2(engine.db, table, skip, sorted({6, 96, *pq}),
+                    args.seed + 11)
+    k34 = compare_protocol(table, p, P, c.partition_size,
+                           sorted({6, 96, 384, *pq}), args.seed + 13)
     k4_edge = compare_k4_edge(table, p, P, 96, args.seed + 27)
     # the repair pins: K2 at k = 5 and 8; K3/K4 at Hp = 14,336 (n = 7M)
     k2_wide = compare_k2_wide(table, skip, p.chunk_size, args.seed + 19)
@@ -2414,6 +2877,10 @@ def main() -> int:
     host, host_launches = host_engines_phase(raw, args.seed + 90,
                                              reset_counts, read_counts)
     launches.update(host_launches)
+    # the private driver on every engine, its own paths
+    private, private_launches = private_search_phase(
+        args.seed + 95, reset_counts, read_counts)
+    launches.update(private_launches)
     # the repair pins on the engine: 3,968 B entries (k = 8) on "xla", and
     # n = 5M (Hp = 14,336) on "pallas" and "fused";
     # each DB freed before the next
@@ -2465,6 +2932,7 @@ def main() -> int:
                    k3_k4=k34, k3_k4_hp14336=k34_wide, k3_k4_wide_s=k3_wide,
                    k4_edge=k4_edge,
                    k5=k5, k6=k6, k7=k7, paths=paths, host_engines=host,
+                   private_search=private,
                    ptxas=ptxas_notes,
                    launches=launches, pir_select_ms=select_ms,
                    resident_state=resident, peak_device_gb=peak_gb,

@@ -11,11 +11,12 @@ and numpy, never jax. Same layer map as the reference:
              beside its plain torch version; the numpy AES oracle.
   pir/       parameter derivation, DB layout, the device-resident batch
              PIR engine, and state conversion from the JAX engine.
-  private/   fused private search: beam traversal + PIR per step.
+  private/   the PIR-backed vertex oracle, fused private search (beam
+             traversal + PIR per step) and the end-to-end driver.
   graph/     plaintext beam search (batched and host), exact k-NN,
-             recall and graph quality.
-  io/        bvecs/fvecs/ivecs/npy/txt loaders.
-  cli/       exact search and the plaintext ANN command.
+             recall and graph quality, k-means start vertices.
+  io/        bvecs/fvecs/ivecs/npy/txt loaders, the report writer.
+  cli/       private search, exact search and the plaintext ANN command.
   utils/     u32-as-int32 helpers, stable top-k, the nvcc/ctypes loader.
   csrc/      CUDA C++ sources for sm_90a, built on first use.
 """

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from pacmann_tpu_torch.graph.beam import PlaintextEngine
+from pacmann_tpu_torch.graph.build import graph_build_not_ported
 from pacmann_tpu_torch.graph.recall import brute_force_knn, compute_recall
 from pacmann_tpu_torch.io.loaders import (
     load_float32_matrix,
@@ -50,9 +51,7 @@ def main(argv=None, device=None) -> int:
         vectors = rng.random((args.n, args.dim), dtype=np.float32)
 
     if not (args.graph and os.path.exists(args.graph)):
-        raise NotImplementedError(
-            "no existing -graph file: building one needs build_graph, which "
-            "is not ported yet (ROADMAP Queue 1 item 11)")
+        raise graph_build_not_ported("no existing -graph file: building one")
     graph = load_int_matrix(args.graph, args.n, args.m)
 
     if args.query:

@@ -37,7 +37,7 @@ def main(argv=None, device=None) -> int:
     if args.shards > 1:
         raise NotImplementedError(
             "-shards > 1 (DB rows sharded over devices) is not ported yet: "
-            "ROADMAP Queue 1 item 13 (multi-device)")
+            'ROADMAP Queue 1, "Multi-device"')
     dev = cuda_lib.default_device(None, device)
 
     rng = np.random.default_rng(args.seed)

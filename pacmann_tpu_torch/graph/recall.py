@@ -15,6 +15,7 @@ import torch
 
 from pacmann_tpu_torch.graph.beam import PlaintextEngine
 from pacmann_tpu_torch.graph.beam_host import BasicGraphOracle, BeamSearcher
+from pacmann_tpu_torch.graph.build import graph_build_not_ported
 from pacmann_tpu_torch.ops.distance import l2_distance
 from pacmann_tpu_torch.utils import cuda_lib
 from pacmann_tpu_torch.utils.u32 import smallest_k_keyed
@@ -93,10 +94,8 @@ def evaluate_graph_quality(vectors, graph, num_queries: int = 100,
     the JAX package's hook for the graph build's compiled gate, comes with
     the graph build and raises until then."""
     if search_fn is not None:
-        raise NotImplementedError(
-            "evaluate_graph_quality(search_fn=...) serves the graph build's "
-            "gate, which is not ported yet (ROADMAP Queue 1 item 11, "
-            "build_graph)")
+        raise graph_build_not_ported(
+            "evaluate_graph_quality(search_fn=...), the graph build's gate,")
     rng = np.random.default_rng(seed)
     n = vectors.shape[0]
     targets = rng.integers(0, n, size=num_queries)

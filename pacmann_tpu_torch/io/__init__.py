@@ -1,3 +1,3 @@
-"""Data I/O: vector/graph file loaders (numpy only)."""
+"""Data I/O: vector/graph file loaders and the benchmark report writer."""
 
-from pacmann_tpu_torch.io import loaders  # noqa: F401
+from pacmann_tpu_torch.io import loaders, report  # noqa: F401

@@ -181,6 +181,7 @@ class FusedPrivateSearch:
         # (private-search-report.txt:16,19)
         self.maintenance_s = 0.0        # cumulative, incl. ensure_budget
         self.last_maintenance_s = 0.0   # refresh time inside the last search
+        self.refresh_dummy = False      # benchmarking: zeroed-hint refresh
         # device-measured fetch accounting, cumulative over searches:
         # [distinct wanted fetches, quota survivors, PIR-served]
         self.fetch_stats = np.zeros(3, np.int64)
@@ -189,7 +190,10 @@ class FusedPrivateSearch:
 
     def _refresh(self) -> float:
         t0 = time.perf_counter()
-        self.engine.preprocessing()
+        if self.refresh_dummy:
+            self.engine.dummy_preprocessing()
+        else:
+            self.engine.preprocessing()
         dt = time.perf_counter() - t0
         self.maintenance_s += dt
         self.refreshes += 1

@@ -121,3 +121,27 @@ def test_search_draws_its_own_randoms():
     assert ids.shape == (2, 5)
     assert ((ids >= -1) & (ids < 1024)).all() and (ids >= 0).any()
     assert got.fetch_stats[0] > 0 and got.engine.queries_made_in_partition > 0
+
+
+def test_dummy_refresh_matches_reference():
+    """refresh_dummy (the driver's benchmarking mode): _refresh() takes the
+    engine's dummy_preprocessing, as the JAX search does: the all-zero hint
+    state, no draw from the engine's generator; then a search on it gives
+    the JAX answers, steps, fetch counters and state."""
+    ref, got, rng = _pair(52)
+    for fs in (ref, got):
+        fs.refresh_dummy = True
+        fs.engine._rng = np.random.default_rng(3)
+        fs._refresh()
+    assert got.refreshes == ref.refreshes == 1
+    assert (got.engine._rng.bit_generator.state
+            == ref.engine._rng.bit_generator.state
+            == np.random.default_rng(3).bit_generator.state)
+    want = {k: np.asarray(v).astype(np.uint32)
+            for k, v in ref.engine.state.items()}
+    have = state_to_numpy(got.engine.state)
+    for key, v in want.items():
+        assert np.array_equal(have[key], v), key
+    assert not have["primary_parity"].any() and not have["table"].any()
+    queries = rng.integers(0, 8, size=(2, 8)).astype(np.float32)
+    _search_both(ref, got, queries, 5, 4, 2, seed=9)

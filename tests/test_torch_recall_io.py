@@ -168,18 +168,19 @@ def test_exact_search_main_matches_jax(capsys):
 
 
 def test_unported_paths_raise(mini, monkeypatch):
-    """-shards > 1 and ann without a graph file name the ROADMAP item that
-    ports them; nothing runs on one device or builds a stand-in graph."""
+    """-shards > 1, ann without a graph file and the graph build's gate name
+    the ROADMAP item that ports them by its title; nothing runs on one
+    device or builds a stand-in graph."""
     base, graph, _ = mini
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match='Queue 1, "Multi-device"'):
         exact_search.main(["-n", "64", "-q", "2", "-shards", "2"],
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match='Queue 1, "The graph build"'):
         ann.main(["-n", "64", "-q", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match='Queue 1, "The graph build"'):
         ann.main(["-n", "64", "-q", "2", "-graph", "/nonexistent.npy"],
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match='Queue 1, "The graph build"'):
         recall.evaluate_graph_quality(base, graph, search_fn=lambda *a: a)
 
 
