@@ -92,17 +92,38 @@ queries). Phases, in order:
      served row its raw row, success against the model; then the private
      driver (private_search_phase): run_private_search on every engine on
      CUDA against the CPU at n = 16,384 (the same answers, reach steps and
-     success), then at scripts/run-private-search.sh's deployment (1M x
-     640 B, k = 10, step 20, parallel 3; the driver's synthetic vectors and
-     random graph; q cut to 2-100 a run): "device-fused" (route "fused",
-     concurrent 8), "device" ("pallas"), "fused" (sequential, concurrent 8
-     and traced by -profile for the device's busy share), "simple" and
-     non-private, each with its exact kernels (simple K1 + K7c; fused K1 +
-     K7b + K2; device and device-fused K1 + K2 + K4 or K3; non-private its
-     engine's prep only), success against the model or above 0.7, the
-     report's fields; private recall on the exact 32-NN graph of 131,072
-     vectors within 0.15 of non-private recall; cli.private_search.main once
-     with -report and -profile (a trace naming K2); then the repair
+     success); the graph build (graph/build.py) and the cluster baseline
+     (graph/cluster.py) on CUDA against the CPU at n = 16,384 on
+     integer-valued vectors (each integer stage of the build replayed on
+     the card from the CPU build's recorded inputs, bit-equal; the whole
+     graph from the CPU's draws equal or its differing rows counted with
+     their cause, and the card's own draws build the same graph; k-means
+     labels, centroids and search ids equal given the same seeding ids);
+     then at scripts/run-private-search.sh's deployment (1M x 640 B, k =
+     10, step 20, parallel 3) on 1M manifold vectors of SIFT1M's shape
+     (u8, 8 latent dimensions) in a .bvecs file and the graph the driver builds from it (no
+     graph file, build_graph=True: build_graph's defaults, the gate on;
+     the first run builds, caches it and writes the aux record, the later
+     runs load it; every row m distinct non-self ids, gate hit rate at
+     least 0.95; the build's phase times and peak memory printed); q cut
+     to 2-100 a run: "device-fused" (route "fused", concurrent 8),
+     "device" ("pallas"), "fused" (sequential, concurrent 8 and traced by
+     -profile for the device's busy share), "simple" and non-private, each
+     with its exact kernels (simple K1 + K7c; fused K1 + K7b + K2; device
+     and device-fused K1 + K2 + K4 or K3; non-private its engine's prep
+     only), success against the model or above 0.7, the report's fields;
+     "device-fused" and "fused" recall@10 at least non-private recall -
+     0.05 (100 queries each); the plaintext engine's recall@10 on the
+     built graph at least 0.2 above a random graph's (1,000 queries,
+     ground truth through K6); the cluster baseline on the same 1M vectors
+     (sqrt(n) = 1,000 clusters, 10 Lloyd iterations: train s, ms/query,
+     recall@10, K6 launches exact: one a seeding center, one a Lloyd block
+     an iteration, one a block of 64 queries); the same build, plaintext
+     recall and cluster baseline on 1M vectors of 12 latent dimensions
+     (the harder workload; gate and recall bars from its own readings over
+     several seeds, scripts/build_quality.py);
+     cli.private_search.main once with -report and -profile (a trace
+     naming K2); then the repair
      pins on the engine, each DB freed before the next: n = 1M entries of
      3,968 B (k = 8, 4.16 GB packed) on route "xla", and n = 5M entries of
      640 B
@@ -1971,20 +1992,29 @@ def compare_k6(seed: int) -> dict:
     """K6 against its plain version at the exact-search shape (1,000 x 1M x
     128) and at the shapes the plaintext paths launch: knn_search's
     (1,000, 65,536) block and (1,000, 16,960) tail and the kNN graph's
-    (1,024, 65,536) block; also a ragged (1,000, 4,099) x D = 37 and a
-    (999, 65,535) one whose rows are not 16-byte aligned (the kernel's
-    4-byte copies). Bit-equal on integer-valued data (0-255: every
+    (1,024, 65,536) block; at the cluster baseline's: k-means++ seeding's
+    (1, 65,536) (one center against the sample), the Lloyd assignment's
+    (65,536, 1,000) block and (16,960, 1,000) tail, the query routing's
+    (64, 1,000) block and (40, 1,000) tail; also a ragged (1,000, 4,099) x
+    D = 37 and a (999, 65,535) one whose rows are not 16-byte aligned (the
+    kernel's 4-byte copies). Bit-equal on integer-valued data (0-255: every
     partial sum is exact), within 1e-5 (|q|^2 + |p|^2) elementwise on
     uniform [0, 1) floats. Timed on the floats in turns, kernel / plain /
     kernel; the plain version is itself the library (cuBLAS) form. Also
     timed: exact search's 16 K6 launches over 1M points alone."""
     import torch
 
+    from pacmann_tpu_torch.graph.cluster import SEED_SAMPLE
     from pacmann_tpu_torch.ops import distance
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     tail = L2_N - L2_N // KNN_BLOCK * KNN_BLOCK
+    # the cluster path's launches at n = N: sqrt(N) centroids, blocks of
+    # CLUSTER_BLOCK vectors, of CLUSTER_QBLOCK of the L2_Q queries
+    K = int(np.sqrt(N))
+    lloyd_tail = N % CLUSTER_BLOCK or CLUSTER_BLOCK
+    route_tail = L2_Q % CLUSTER_QBLOCK or CLUSTER_QBLOCK
     errs = {}
     for kind in ("integer", "float"):
         if kind == "integer":
@@ -2000,9 +2030,13 @@ def compare_k6(seed: int) -> dict:
                                                             (p, 4099))]
         shifted = [x[:rows].reshape(-1)[1:1 + (rows - 1) * DIM].view(
             rows - 1, DIM) for x, rows in ((q, L2_Q), (p, KNN_BLOCK))]
+        cluster_shapes = (
+            (q[:1], p[:SEED_SAMPLE]), (p[:CLUSTER_BLOCK], q[:K]),
+            (p[L2_N - lloyd_tail:], q[:K]), (q[:CLUSTER_QBLOCK], p[:K]),
+            (q[:route_tail], p[:K]))
         for qs, ps in ((q[:L2_Q], p), (q[:L2_Q], p[:KNN_BLOCK]),
                        (q[:L2_Q], p[L2_N - tail:]), (q, p[:KNN_BLOCK]),
-                       ragged, shifted):
+                       *cluster_shapes, ragged, shifted):
             got = distance.l2_distance_cuda(qs, ps)
             want = distance.l2_distance_plain(qs, ps)
             torch.cuda.synchronize()
@@ -2041,7 +2075,9 @@ def compare_k6(seed: int) -> dict:
     b = l2_bound(L2_Q, L2_N, DIM)
     tflops = 2 * L2_Q * L2_N * DIM / ms / 1e9
     print(f"K6 l2_distance ({L2_Q},{DIM})x({L2_N},{DIM}), the launch "
-          f"shapes (1000|1024, {KNN_BLOCK}|{tail}), (1000, 4099) x D = 37 "
+          f"shapes (1000|1024, {KNN_BLOCK}|{tail}), the cluster path's "
+          f"(1, {SEED_SAMPLE}), ({CLUSTER_BLOCK}|{lloyd_tail}, {K}) and "
+          f"({CLUSTER_QBLOCK}|{route_tail}, {K}), (1000, 4099) x D = 37 "
           f"and rows off 16-byte alignment: bit-equal to plain on "
           f"integer data; max err {errs['float']:.3g} on floats (within "
           f"1e-5 (|q|^2+|p|^2)); kernel {turns[0]:.3f}/{turns[2]:.3f} ms "
@@ -2223,13 +2259,15 @@ def knn_graph_phase(seed: int) -> dict:
 # entries), k = 10, step 20, parallel 3, rtt 50 ms, FailureProbLog2 8;
 # each run's q is the only cut. (label, engine, protocol route, q,
 # concurrent, non_private, profiled); the route is the device engines'
-# ($PACMANN_PROTOCOL_ROUTE: "fused" runs K3, "pallas" K4)
+# ($PACMANN_PROTOCOL_ROUTE: "fused" runs K3, "pallas" K4). The first run
+# builds the graph; "device-fused", "fused concurrent" and "non_private"
+# answer the same 100 queries (the recall comparison)
 PRIVATE_K, PRIVATE_STEP, PRIVATE_PARALLEL, PRIVATE_RTT = 10, 20, 3, 50.0
 PRIVATE_RUNS = (
     ("device-fused", "device-fused", "fused", 100, 8, False, False),
     ("device", "device", "pallas", 20, 1, False, False),
     ("fused", "fused", None, 20, 1, False, False),
-    ("fused concurrent", "fused", None, 20, 8, False, False),
+    ("fused concurrent", "fused", None, 100, 8, False, False),
     ("fused profiled", "fused", None, 2, 1, False, True),
     ("simple", "simple", None, 10, 1, False, False),
     ("non_private", "device-fused", None, 100, 8, True, False),
@@ -2249,11 +2287,28 @@ def private_quotas(P: int) -> tuple:
 
 
 # CUDA against the CPU (PRIVATE_SMALL_Q queries of PRIVATE_SMALL_STEP
-# steps: the CPU side takes most of the phase) and the CLI: n = 16,384
-# integer-valued vectors and their exact graph; recall: KNN_N manifold
-# vectors, PRIVATE_RECALL_Q queries
+# steps: the CPU side takes most of the phase), the graph build's and the
+# cluster baseline's too, and the CLI: n = 16,384 integer-valued vectors
 PRIVATE_SMALL_N, PRIVATE_SMALL_Q, PRIVATE_SMALL_STEP = 16_384, 3, 10
-PRIVATE_RECALL_Q = 100
+# the build's data: manifold vectors (u8, rint-quantised and clipped) of
+# BUILD_LATENT latent dimensions for the driver's cell and HARD_LATENT for
+# the harder cell. Not the JAX package's continuum workloads (f32 at unit
+# scale with 0.02 ambient noise, built with 8 rounds, not 6), so its
+# RESULTS.md rows are context, not yardsticks
+BUILD_LATENT, HARD_LATENT = 8, 12
+# the harder cell's bars, from its own readings (scripts/build_quality.py
+# over seeds 5-8 on the H100: gate 0.95-0.98, recall@10 0.8535-0.8652):
+# the lowest gate hit rate - 0.04, the lowest plaintext recall@10 - 0.02
+HARD_GATE_MIN, HARD_RECALL_MIN = 0.91, 0.8335
+# the built graph's checks: the gate's self-query hit rate, private
+# recall against non-private's, the plaintext engine's recall against a
+# random graph's
+BUILD_GATE_MIN, PRIVATE_RECALL_GAP, BUILT_OVER_RANDOM = 0.95, 0.05, 0.2
+# the cluster baseline: sqrt(n) clusters (cluster-search.py:92), Lloyd
+# iterations, kmeans's block and the searcher's query block
+CLUSTER_ITERS, CLUSTER_BLOCK, CLUSTER_QBLOCK = 10, 65536, 64
+# the cluster parity's data: well-separated integer clusters
+PARITY_CLUSTERS = 128
 # K2's row-split kernel, the fused engine's batch scan, as a trace names it
 K2_ROW_KERNEL = "row_split_kernel"
 
@@ -2444,41 +2499,334 @@ def trace_device(path) -> tuple[float, list]:
     return busy_us * 1e-6, names
 
 
+def write_bvecs(path, mat: np.ndarray) -> None:
+    """(n, d) u8 rows as a .bvecs file: each row a little-endian i32 d,
+    then its d bytes."""
+    n, d = mat.shape
+    rows = np.empty((n, 4 + d), np.uint8)
+    rows[:, :4] = np.frombuffer(np.int32(d).tobytes(), np.uint8)
+    rows[:, 4:] = mat
+    rows.tofile(path)
+
+
+def graph_invariants(graph: np.ndarray, n: int, label: str) -> None:
+    """Every row of graph holds exactly M distinct non-self ids in [0, n)."""
+    check(graph.shape == (n, M), f"{label}: graph is {graph.shape}")
+    check(bool(((graph >= 0) & (graph < n)).all()),
+          f"{label}: ids outside [0, {n})")
+    srt = np.sort(graph, axis=1)
+    check(bool((srt[:, 1:] != srt[:, :-1]).all()),
+          f"{label}: a row repeats an id")
+    check(not (graph == np.arange(n)[:, None]).any(),
+          f"{label}: a row holds its own id")
+
+
+def _to_cuda(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.cuda()
+    if isinstance(x, dict):
+        return {k: _to_cuda(v) for k, v in x.items()}
+    return x
+
+
+def build_parity(seed: int) -> dict:
+    """graph/build.py on CUDA against the CPU at n = PRIVATE_SMALL_N
+    integer-valued manifold vectors (every f32 distance exact), build_graph's
+    defaults, the same seed. The CPU build makes its draws on the CPU and
+    keeps them, and records each stage's inputs and output; each stage is
+    replayed on the card from those inputs: the integer stages (descent
+    rounds, wide round, prunes, corridors, degree regularization and fill)
+    bit-equal. The bootstrap and the ladder rank by float centroids
+    (means), so they may differ at a near-tie: their differing rows are
+    counted. Then the whole build on the card with the CPU's draws handed
+    in: the same graph, or its differing rows counted and a float stage's
+    difference named as their cause; and with the card's own draws (the
+    counter hash on the card): the same graph as with the CPU's."""
+    import torch
+
+    from pacmann_tpu_torch.graph import build
+
+    rng = np.random.default_rng(seed)
+    basis = rng.standard_normal((BUILD_LATENT, DIM), dtype=np.float32)
+    v = manifold_vectors(rng, basis, PRIVATE_SMALL_N)
+    rec = {}
+    cpu_draws = build.BuildDraws(seed, keep=True)
+    t0 = time.perf_counter()
+    g_cpu = build.build_graph(v, M, seed=seed, device="cpu", draws=cpu_draws,
+                              record=rec)
+    cpu_s = time.perf_counter() - t0
+    made = cpu_draws.made()
+    stages = {}
+    for name, (fn, args, kw, out) in rec.items():
+        got = fn(*[_to_cuda(a) for a in args], **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        gots = got if isinstance(got, tuple) else (got,)
+        rows = 0
+        for a, b in zip(outs, gots):
+            b = b.cpu()
+            same = (a == b) if a.dtype != torch.float32 else (
+                (a == b) | (torch.isinf(a) & torch.isinf(b)))
+            if same.dim() > 1:
+                same = same.reshape(same.shape[0], -1).all(dim=1)
+            rows = max(rows, int((~same).sum()))
+        stages[name] = rows
+    del rec
+    float_stages = ("bootstrap", "ladder")
+    bad = {k: r for k, r in stages.items() if r and k not in float_stages}
+    check(not bad, f"build parity: integer stages differ between CUDA and "
+          f"the CPU (rows): {bad}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_cuda = build.build_graph(v, M, seed=seed, draws=made)
+    cuda_s = time.perf_counter() - t0
+    graph_invariants(g_cuda, PRIVATE_SMALL_N, "build parity (CUDA)")
+    differ = int((g_cpu != g_cuda).any(axis=1).sum())
+    cause = [k for k in float_stages if stages[k]]
+    check(differ == 0 or cause, f"build parity: {differ} rows differ with "
+          "every stage equal on replay")
+    t0 = time.perf_counter()
+    g_own = build.build_graph(v, M, seed=seed)
+    own_s = time.perf_counter() - t0
+    check(np.array_equal(g_own, g_cuda), "build parity: the card's own "
+          "draws build another graph than the CPU's draws handed in")
+    print(f"build parity n={PRIVATE_SMALL_N}: every integer stage bit-equal "
+          f"on CUDA replay ({len(stages)} stages); float stages' differing "
+          f"rows {({k: stages[k] for k in float_stages})}; whole graph with "
+          f"the CPU's {len(made)} draws handed in: {differ} rows differ"
+          + (f" (cause: {', '.join(cause)})" if differ else "")
+          + f"; with the card's own draws the same graph; CPU {cpu_s:.2f} s, "
+          f"CUDA {cuda_s:.2f} s, {own_s:.2f} s")
+    return dict(stage_rows=stages, graph_rows=differ, cpu_s=cpu_s,
+                cuda_s=cuda_s, own_draws_s=own_s)
+
+
+def cluster_parity(seed: int) -> dict:
+    """graph/cluster.py on CUDA (K6 routing and assignment) against the CPU
+    at n = PRIVATE_SMALL_N integer-valued vectors in PARITY_CLUSTERS
+    well-separated clusters (the centroids exact means, no argmin near a
+    tie), the same seeding ids (drawn once): labels, centroids and search
+    ids of 1,000 queries equal."""
+    from pacmann_tpu_torch.graph import cluster
+
+    rng = np.random.default_rng(seed)
+    per = PRIVATE_SMALL_N // PARITY_CLUSTERS
+    centers = rng.integers(0, 32, (PARITY_CLUSTERS, DIM)) * 6
+    v = (np.repeat(centers, per, axis=0)
+         + rng.integers(0, 4, (PRIVATE_SMALL_N, DIM))).astype(np.float32)
+    q = v[rng.choice(PRIVATE_SMALL_N, L2_Q, replace=False)] + 1
+    import torch
+
+    ids = cluster._kmeanspp_init(torch.from_numpy(v), PARITY_CLUSTERS,
+                                 seed=seed)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = cluster.ClusterSearcher(v, PARITY_CLUSTERS, CLUSTER_ITERS, seed,
+                                    init_ids=ids.numpy(), device=dev)
+        out[dev] = (s.labels, s.centroids, s.search(q, PRIVATE_K))
+    a, b = out["cuda"], out["cpu"]
+    check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+          "cluster parity: labels, centroids or search ids differ between "
+          "CUDA and the CPU")
+    print(f"cluster parity n={PRIVATE_SMALL_N} K={PARITY_CLUSTERS}: CUDA == "
+          f"CPU (labels, centroids, ids of {L2_Q} queries)")
+    return dict(equal=True)
+
+
+def built_graph_phase(vt, queries: np.ndarray, graph: np.ndarray,
+                      seed: int) -> tuple[dict, np.ndarray]:
+    """The plaintext engine on the driver's built graph: recall@10 over the
+    L2_Q queries (step 20, parallel 3; ground truth through K6, one launch
+    a block of KNN_BLOCK points) at least BUILT_OVER_RANDOM above a random
+    graph's of degree M. Returns (results, the ground truth)."""
+    from pacmann_tpu_torch.graph.beam import PlaintextEngine
+    from pacmann_tpu_torch.graph.recall import brute_force_knn, compute_recall
+
+    n = vt.shape[0]
+    gnd = brute_force_knn(vt, queries, 10)
+    rng = np.random.default_rng(seed)
+    rec = {}
+    for name, gr in (("built", graph), ("random",
+                                        rng.integers(0, n, (n, M)))):
+        t0 = time.perf_counter()
+        ids, _ = PlaintextEngine(vt, gr).search(queries, 10, 20, 3,
+                                                seed=seed)
+        rec[name] = compute_recall(gnd, ids, 10)
+        rec[name + " ms/query"] = (time.perf_counter() - t0) * 1e3 / len(
+            queries)
+    print(f"built graph n={n} m={M}: plaintext recall@10 {rec['built']:.4f} "
+          f"({len(queries)} queries, step 20, parallel 3) vs "
+          f"{rec['random']:.4f} on a random graph")
+    check(rec["built"] >= rec["random"] + BUILT_OVER_RANDOM,
+          f"built-graph recall {rec['built']:.4f} is not {BUILT_OVER_RANDOM} "
+          f"above the random graph's {rec['random']:.4f}")
+    from pacmann_tpu_torch.graph.recall import Q_BLOCK
+
+    return dict(rec, k6_launches=-(-n // KNN_BLOCK) * -(-len(queries)
+                                                         // Q_BLOCK)), gnd
+
+
+def cluster_phase(vt, queries: np.ndarray, gnd: np.ndarray,
+                  seed: int) -> dict:
+    """The cluster baseline on the same vectors: ClusterSearcher with
+    sqrt(n) clusters and CLUSTER_ITERS Lloyd iterations, then the L2_Q
+    queries; train s, ms/query and recall@10 against `gnd` (the exact
+    ground truth of the built-graph path). Its K6 launches: one a seeding
+    center, one a CLUSTER_BLOCK block a Lloyd iteration, one a block of
+    CLUSTER_QBLOCK queries."""
+    import torch
+
+    from pacmann_tpu_torch.graph.cluster import ClusterSearcher
+    from pacmann_tpu_torch.graph.recall import compute_recall
+
+    n = vt.shape[0]
+    searcher = ClusterSearcher(vt, None, CLUSTER_ITERS, seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = searcher.search(queries, 10)
+    search_s = time.perf_counter() - t0
+    K = int(np.sqrt(n))
+    want = (K + CLUSTER_ITERS * -(-n // CLUSTER_BLOCK)
+            + -(-len(queries) // CLUSTER_QBLOCK))
+    rec = compute_recall(gnd, ids, 10)
+    print(f"cluster baseline n={n} K={K} iters={CLUSTER_ITERS}: train "
+          f"{searcher.train_time:.3f} s, "
+          f"{search_s * 1e3 / len(queries):.4f} ms/query ({len(queries)} "
+          f"queries), recall@10 {rec:.4f}; K6 launches {want} ({K} seeding "
+          f"+ {CLUSTER_ITERS} x {-(-n // CLUSTER_BLOCK)} Lloyd + "
+          f"{-(-len(queries) // CLUSTER_QBLOCK)} routing)")
+    return dict(clusters=K, iters=CLUSTER_ITERS, train_s=searcher.train_time,
+                ms_per_query=search_s * 1e3 / len(queries), recall=rec,
+                k6_launches=want)
+
+
+def hard_latent_phase(seed: int) -> dict:
+    """The build on the harder workload: N manifold vectors of HARD_LATENT
+    dimensions, build_graph called directly (its defaults, the gate on),
+    then built_graph_phase and cluster_phase on it. Its bars come from its
+    own readings over several seeds (scripts/build_quality.py): the gate's
+    hit rate at least HARD_GATE_MIN, plaintext recall@10 at least
+    HARD_RECALL_MIN."""
+    import torch
+
+    from pacmann_tpu_torch.graph import build
+
+    rng = np.random.default_rng(seed)
+    basis = rng.standard_normal((HARD_LATENT, DIM), dtype=np.float32)
+    v = manifold_vectors(rng, basis, N)
+    q = manifold_vectors(rng, basis, L2_Q).astype(np.float32)
+    last = {}
+    graph = build.build_graph(v, M, seed=seed, quality_gate=True, stats=last)
+    graph_invariants(graph, N, f"the latent-{HARD_LATENT} graph")
+    vt = torch.from_numpy(v).cuda().float()
+    built, gnd = built_graph_phase(vt, q, graph, seed)
+    clus = cluster_phase(vt, q, gnd, seed)
+    hit, steps = last["gate"]
+    print(f"latent {HARD_LATENT} n={N}: build {last['seconds']:.2f} s "
+          f"(draws {last['draw_seconds']:.2f} s, peak "
+          f"{last['peak_gb']:.2f} GB), gate hit rate {hit:.3f} (bar "
+          f"{HARD_GATE_MIN}), avg steps {steps:.2f}; plaintext recall@10 "
+          f"{built['built']:.4f} (bar {HARD_RECALL_MIN}), cluster "
+          f"{clus['recall']:.4f}")
+    check(hit >= HARD_GATE_MIN, f"latent {HARD_LATENT}: the gate's hit rate "
+          f"{hit:.3f} is below {HARD_GATE_MIN}")
+    check(built["built"] >= HARD_RECALL_MIN, f"latent {HARD_LATENT}: "
+          f"plaintext recall@10 {built['built']:.4f} is below "
+          f"{HARD_RECALL_MIN}")
+    return dict(build_s=last["seconds"], draw_seconds=last["draw_seconds"],
+                phases=dict(last["phases"]),
+                phase_draw_seconds=dict(last["phase_draw_seconds"]),
+                gate_hit_rate=hit, gate_avg_steps=steps, built=built,
+                cluster=clus,
+                k6_launches=built["k6_launches"] + clus["k6_launches"])
+
+
+def build_phase_check(last: dict, cache: Path, run_s: float,
+                      load_int_matrix) -> dict:
+    """The driver's graph build at full width (the first private run):
+    the graph cached at `cache` with its aux record, every row M distinct
+    non-self ids, the gate's hit rate at least BUILD_GATE_MIN; prints the
+    build's wall time, each phase's seconds, the draws' and the card's
+    peak memory (`last`: the run's PrivateSearchResult.build_stats)."""
+    check(cache.exists(), f"the driver did not cache the graph at {cache}")
+    aux = cache.with_name(cache.stem + "_aux.txt").read_text().splitlines()
+    check(len(aux) == 3 and aux[0] == f"Dataset: manifold_{N}_{DIM}_{M}"
+          and aux[1].startswith("Graph generation time: ")
+          and aux[2] == f"n={N} dim={DIM} m={M}",
+          f"the aux record is not the reference's three lines: {aux}")
+    graph = load_int_matrix(str(cache), N, M)
+    graph_invariants(graph, N, "the built graph")
+    hit, steps = last["gate"]
+    phases, draws = last["phases"], last["phase_draw_seconds"]
+    print(f"graph build n={N} m={M} (rounds 6, keep_nearest 16, corridor "
+          f"16:2:1): {last['seconds']:.2f} s in all ({run_s:.2f} s for the "
+          f"whole driver run), draws {last['draw_seconds']:.2f} s, peak "
+          f"{last['peak_gb']:.2f} GB; phases (draws inside): "
+          + ", ".join(f"{k} {v:.3f}" + (f" ({draws[k]:.3f})"
+                                        if draws.get(k, 0.0) >= 0.001 else "")
+                      for k, v in phases.items())
+          + f"; gate hit rate {hit:.3f}, avg steps {steps:.2f}; every row "
+          f"{M} distinct non-self ids")
+    check(hit >= BUILD_GATE_MIN, f"the gate's hit rate {hit:.3f} is below "
+          f"{BUILD_GATE_MIN}")
+    return dict(seconds=last["seconds"], run_s=run_s,
+                draw_seconds=last["draw_seconds"], peak_gb=last["peak_gb"],
+                phases=dict(phases),
+                phase_draw_seconds=dict(last["phase_draw_seconds"]),
+                gate_hit_rate=hit, gate_avg_steps=steps,
+                aux=aux)
+
+
 def private_search_phase(seed: int, reset, counted) -> tuple[dict, dict]:
     """The private driver, run_private_search, the way a user runs it:
       1. private_parity: every engine on CUDA against the CPU at n =
          PRIVATE_SMALL_N (integer-valued vectors, their exact M-NN graph);
-      2. the canonical deployment at full width (N x 640 B, the driver's
-         own synthetic vectors and queries, gen_random_matrix, and its
-         random graph, build_graph=False: recall is meaningless there, so
-         this checks fetch success, launches and the report), each of
-         PRIVATE_RUNS with the launch counters set to 0 just before and
-         read just after, each engine's DB freed before the next: the
-         exact kernels of its engine (simple: K1 and K7c; fused: K1, K7b
-         and K2; device and device-fused: K1, K2 and the route's K4 or K3;
-         non_private: its engine's prep only (JAX's PIRGraphOracle
-         preprocesses in non-private mode too) and no kernel in the query
-         loop), success within 0.03 of expected_success_rate
-         (device-fused's fetch counters) or above 0.7; "fused profiled"
-         traces its query loop (-profile): the device's time a query
-         from the trace over the unprofiled "fused" run's compute time a
-         query is the device's busy share (the profiler slows the host);
-      3. recall on the exact M-NN graph of KNN_N manifold vectors:
-         "device-fused" and "fused" private recall at least non-private
-         recall - 0.15 on the same graph, queries and seed, success above
-         0.7 (tests/test_private_search.py's bars);
+         build_parity and cluster_parity, the graph build and the cluster
+         baseline the same way;
+      2. the canonical deployment at full width (N x 640 B): N manifold
+         vectors (u8, SIFT1M's shape, BUILD_LATENT latent dimensions) in
+         a .bvecs file in a temporary
+         directory and L2_Q manifold queries; each of PRIVATE_RUNS with the
+         launch counters set to 0 just before and read just after, each
+         engine's DB freed before the next, given the input file, the
+         queries and their exact ground truth and no graph: the first run
+         builds the graph (build_graph=True, verbose: the gate on), caches
+         it under the reference's name and writes the aux record, the later
+         runs load it. Checks: the cache and the aux record, every row M
+         distinct non-self ids, the gate's hit rate at least
+         BUILD_GATE_MIN; per run the exact kernels of its engine (simple:
+         K1 and K7c; fused: K1, K7b and K2; device and device-fused: K1, K2
+         and the route's K4 or K3; non_private: its engine's prep only
+         (JAX's PIRGraphOracle preprocesses in non-private mode too) and no
+         kernel in the query loop; the build launches none), success
+         within 0.03 of expected_success_rate (device-fused's fetch
+         counters) or above 0.7; "fused profiled" traces its query loop
+         (-profile): the device's time a query from the trace over the
+         unprofiled "fused" run's compute time a query is the device's
+         busy share (the profiler slows the host);
+      3. recall on the built graph: "device-fused" and "fused concurrent"
+         recall@10 at least non-private recall - PRIVATE_RECALL_GAP (the
+         same 100 queries, graph and seed); the path "built graph": the
+         plaintext engine's recall@10 over L2_Q queries (step 20, parallel
+         3; ground truth through K6) at least BUILT_OVER_RANDOM above a
+         random graph's of degree M; the path "cluster": ClusterSearcher on
+         the same vectors (sqrt(N) clusters, CLUSTER_ITERS iterations),
+         train s, ms/query and recall@10, its K6 launches exact; the
+         path "latent 12": hard_latent_phase;
       4. cli.private_search.main once at n = PRIVATE_SMALL_N with -input,
          -graph, -report and -profile: the report file holds every field,
          the trace names K2's batch kernel.
     Returns (results, launches)."""
     import math
     import shutil
+    import tempfile
 
     import torch
 
     from pacmann_tpu_torch.cli import private_search as cli
     from pacmann_tpu_torch.graph.recall import brute_force_knn
-    from pacmann_tpu_torch.io.loaders import save_int_matrix
+    from pacmann_tpu_torch.io.loaders import load_int_matrix, save_int_matrix
     from pacmann_tpu_torch.io.report import PrivateSearchReport
     from pacmann_tpu_torch.private import driver
 
@@ -2490,33 +2838,55 @@ def private_search_phase(seed: int, reset, counted) -> tuple[dict, dict]:
     small_g = exact_knn_graph(small_v)
     small_v = small_v.cpu().numpy()
     private_parity(seed + 1, small_v, small_g)
+    res["build_parity"] = build_parity(seed + 3)
+    res["cluster_parity"] = cluster_parity(seed + 4)
 
-    # 2. the canonical deployment
+    # 2. the canonical deployment on the graph the driver builds
     out_dir = Path("chiprun_out")
     prof_dir = out_dir / "private_profile"
     shutil.rmtree(prof_dir, ignore_errors=True)
-    q_max = max(run[3] for run in PRIVATE_RUNS)
+    rng = np.random.default_rng(seed + 2)
+    basis = rng.standard_normal((BUILD_LATENT, DIM), dtype=np.float32)
     t0 = time.perf_counter()
-    vectors, graph, queries = driver._load_or_make_inputs(
-        private_config(n=N, q=q_max, seed=seed), np.random.default_rng(seed))
-    print(f"private inputs n={N}: gen_random_matrix / gen_random_graph "
+    vectors = manifold_vectors(rng, basis, N)
+    queries = manifold_vectors(rng, basis, L2_Q).astype(np.float32)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    bvecs = Path(tmp.name) / "manifold.bvecs"
+    write_bvecs(bvecs, vectors)
+    vt = torch.from_numpy(vectors).cuda().float()
+    gnd = brute_force_knn(vt, queries, PRIVATE_K)
+    print(f"private inputs n={N}: manifold vectors and {L2_Q} queries, "
+          f"{bvecs.stat().st_size / 1e6:.1f} MB .bvecs, ground truth "
           f"{time.perf_counter() - t0:.2f} s")
+    cache = Path(tmp.name) / f"manifold_{N}_{DIM}_{M}_graph.npy"
     own_of = {"simple": ("aes_mmo_tables", "xor_scan_pallas"),
               "fused": ("aes_mmo_tables", "xor_hintgen_pallas",
                         "xor_gather"),
               "pallas": ("aes_mmo_tables", "xor_gather", "claim_select"),
               "fused route": ("aes_mmo_tables", "xor_gather",
                               "select_full")}
-    for label, engine, route, q, group, non_private, profiled in PRIVATE_RUNS:
+    for i, (label, engine, route, q, group, non_private,
+            profiled) in enumerate(PRIVATE_RUNS):
         path = f"private {label}"
         print(f"-- path {path}")
         cfg = private_config(n=N, q=q, seed=seed, engine=engine,
                              concurrent=group, non_private=non_private,
-                             profile_dir=str(prof_dir) if profiled else "")
+                             profile_dir=str(prof_dir) if profiled else "",
+                             input_file=str(bvecs), build_graph=True,
+                             verbose=i == 0)
+        check(i == 0 or cache.exists(), f"{path}: no cached graph")
         torch.cuda.empty_cache()
         reset()
+        t_run = time.perf_counter()
         with protocol_route(route), fused_searches() as made:
-            r = driver.run_private_search(cfg, vectors, graph, queries[:q])
+            r = driver.run_private_search(cfg, None, None, queries[:q],
+                                          gnd=gnd[:q])
+        run_s = time.perf_counter() - t_run
+        if i == 0:
+            res["build"] = build_phase_check(
+                r.build_stats, cache, run_s, load_int_matrix)
+        else:
+            check(not r.build_stats, f"{path}: the driver built again")
         groups = math.ceil(q / group)
         check(r.answers.shape == (q, PRIVATE_K)
               and ((r.answers >= -1) & (r.answers < N)).all(),
@@ -2570,8 +2940,10 @@ def private_search_phase(seed: int, reset, counted) -> tuple[dict, dict]:
             check(r.success_rate > 0.7, f"{path}: success "
                   f"{r.success_rate:.4f} is not above 0.7")
             extra += f", success {r.success_rate:.4f}"
-        extra += f", {preps - 1} refreshes after the first prep"
+        extra += (f", {preps - 1} refreshes after the first prep, recall@10 "
+                  f"{r.recall:.4f}, {run_s:.2f} s in all")
         res[label] = private_run_line(label, cfg, r, got, extra)
+        res[label].update(recall=r.recall, run_s=run_s)
         if profiled:
             traces = list(prof_dir.glob("*.json"))
             check(len(traces) == 1, f"{path}: {len(traces)} traces")
@@ -2584,43 +2956,44 @@ def private_search_phase(seed: int, reset, counted) -> tuple[dict, dict]:
                   f"({len(names)} kernels in the trace), busy {busy:.5f} of "
                   f"the unprofiled \"fused\" run's compute time a query")
         del r, made
-    del vectors, graph, queries
     torch.cuda.empty_cache()
 
-    # 3. recall on a real graph
-    rng = np.random.default_rng(seed + 2)
-    basis = rng.standard_normal((12, DIM), dtype=np.float32)
-    vt = torch.from_numpy(manifold_vectors(rng, basis, KNN_N)).cuda().float()
-    q = manifold_vectors(rng, basis, PRIVATE_RECALL_Q).astype(np.float32)
-    kg = exact_knn_graph(vt)
-    gnd = brute_force_knn(vt, q, PRIVATE_K)
-    kv = vt.cpu().numpy()
-    del vt
-    rec = {}
-    for label, engine, route, nonp in (
-            ("non_private", "device-fused", None, True),
-            ("device-fused", "device-fused", "fused", False),
-            ("fused", "fused", None, False)):
-        cfg = private_config(n=KNN_N, q=len(q), seed=seed, engine=engine,
-                             concurrent=8, non_private=nonp)
-        with protocol_route(route), fused_searches() as made:
-            r = driver.run_private_search(cfg, kv, kg, q, gnd=gnd)
-        succ = r.success_rate
-        if made:
-            succ = fused_fetch_check(made[0], 8, math.ceil(len(q) / 8) + 1,
-                                     f"recall {label}")[0]
-        rec[label] = dict(recall=r.recall, success=succ,
-                          avg_compute_s_per_q=r.avg_query_time_s)
-        print(f"private recall {label} n={KNN_N} q={len(q)} concurrent=8: "
-              f"recall@10 {r.recall:.4f}, success {succ:.4f}, avg compute "
-              f"{r.avg_query_time_s:.5f} s/query")
-        if not nonp:
-            check(r.recall >= rec["non_private"]["recall"] - 0.15,
-                  f"recall {label}: {r.recall:.4f} is more than 0.15 below "
-                  f"non-private's {rec['non_private']['recall']:.4f}")
-            check(succ > 0.7, f"recall {label}: success {succ:.4f}")
-    res["recall"] = rec
-    del kv, kg
+    # 3. recall on the built graph: private against non-private, the
+    # plaintext engine against a random graph, the cluster baseline
+    base = res["non_private"]["recall"]
+    for label in ("device-fused", "fused concurrent"):
+        check(res[label]["recall"] >= base - PRIVATE_RECALL_GAP,
+              f"recall {label}: {res[label]['recall']:.4f} is more than "
+              f"{PRIVATE_RECALL_GAP} below non-private's {base:.4f}")
+    print(f"private recall@10 on the built graph (100 queries): "
+          f"non-private {base:.4f}, device-fused "
+          f"{res['device-fused']['recall']:.4f}, fused concurrent "
+          f"{res['fused concurrent']['recall']:.4f}")
+    graph = load_int_matrix(str(cache), N, M)
+    tmp.cleanup()
+    gnd = None
+    for path in ("built graph", "cluster"):
+        print(f"-- path {path}")
+        torch.cuda.empty_cache()
+        reset()
+        if gnd is None:
+            res[path], gnd = built_graph_phase(vt, queries, graph, seed)
+        else:
+            res[path] = cluster_phase(vt, queries, gnd, seed)
+        launches[path] = counted(path, ("l2_distance",))
+        want = res[path]["k6_launches"]
+        check(launches[path]["l2_distance"] == want, f"{path}: K6 launches "
+              f"{launches[path]['l2_distance']}, not {want}")
+    del graph, vt
+    torch.cuda.empty_cache()
+    path = "latent 12"
+    print(f"-- path {path}")
+    reset()
+    res[path] = hard_latent_phase(seed + 5)
+    launches[path] = counted(path, ("l2_distance",))
+    want = res[path]["k6_launches"]
+    check(launches[path]["l2_distance"] == want, f"{path}: K6 launches "
+          f"{launches[path]['l2_distance']}, not {want}")
     torch.cuda.empty_cache()
 
     # 4. the CLI once

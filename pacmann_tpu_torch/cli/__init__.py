@@ -1,1 +1,2 @@
-"""Command-line entry points: exact search and the plaintext ANN search."""
+"""Command-line entry points: exact search, the plaintext ANN search, the
+cluster baseline and the private search."""

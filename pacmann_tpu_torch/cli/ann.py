@@ -1,9 +1,8 @@
 """Non-private ANN command — plaintext sanity path, the port of the JAX
 package's cli/ann.py.
 
-Port of the reference's graphann/cmd/ann/ann.go (C14): load the graph,
-batched plaintext beam search on the torch engine, recall report. Building
-a graph (no existing -graph file) waits for the graph build's port.
+Port of the reference's graphann/cmd/ann/ann.go (C14): build or load the
+graph, batched plaintext beam search on the torch engine, recall report.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import numpy as np
 import torch
 
 from pacmann_tpu_torch.graph.beam import PlaintextEngine
-from pacmann_tpu_torch.graph.build import graph_build_not_ported
+from pacmann_tpu_torch.graph.build import build_graph
 from pacmann_tpu_torch.graph.recall import brute_force_knn, compute_recall
 from pacmann_tpu_torch.io.loaders import (
     load_float32_matrix,
@@ -26,8 +25,8 @@ from pacmann_tpu_torch.io.loaders import (
 
 
 def main(argv=None, device=None) -> int:
-    """device: where the search runs (a Python keyword, not a flag); None
-    means CUDA, which raises where CUDA is not available."""
+    """device: where the build and the search run (a Python keyword, not a
+    flag); None means CUDA, which raises where CUDA is not available."""
     p = argparse.ArgumentParser(prog="pacmann-ann")
     p.add_argument("-n", type=int, default=1000)
     p.add_argument("-d", "--dim", type=int, default=128)
@@ -50,9 +49,14 @@ def main(argv=None, device=None) -> int:
     else:
         vectors = rng.random((args.n, args.dim), dtype=np.float32)
 
-    if not (args.graph and os.path.exists(args.graph)):
-        raise graph_build_not_ported("no existing -graph file: building one")
-    graph = load_int_matrix(args.graph, args.n, args.m)
+    if args.graph and os.path.exists(args.graph):
+        graph = load_int_matrix(args.graph, args.n, args.m)
+    else:
+        t0 = time.perf_counter()
+        graph = build_graph(vectors, args.m, seed=args.seed, device=device)
+        print(f"Graph build time: {time.perf_counter() - t0:.2f}s")
+        if args.graph:
+            save_int_matrix(args.graph, graph)
 
     if args.query:
         queries = load_float32_matrix(args.query, args.q, args.dim)

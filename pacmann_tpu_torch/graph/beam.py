@@ -169,24 +169,28 @@ def search_paths_all(vectors: torch.Tensor, graph: torch.Tensor,
 
     step_randoms: (npad, max_step, parallel, m) ids, row i for vertex i
     (the JAX package's draw for row j of block b is keyed by
-    fold_in(key, b)); None draws each block's from a torch.Generator
-    seeded with `seed`."""
+    fold_in(key, b)), or a function of (r0, r1) giving rows [r0, r1) of
+    them, called for the blocks in row order; None draws each block's
+    from a torch.Generator seeded with `seed`."""
     npad = vectors.shape[0]
     dev = vectors.device
-    if step_randoms is not None:
-        step_randoms = _as_randoms(step_randoms, dev)
-    else:
+    if step_randoms is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
+
+        def step_randoms(r0, r1):
+            return torch.randint(0, n, (r1 - r0, max_step, parallel, m),
+                                 generator=generator, dtype=torch.int32,
+                                 device=dev)
+    elif not callable(step_randoms):
+        whole = _as_randoms(step_randoms, dev)
+
+        def step_randoms(r0, r1):
+            return whole[r0:r1]
     paths = []
     for r0 in range(0, npad, block):
         r1 = min(r0 + block, npad)
-        if step_randoms is not None:
-            rand = step_randoms[r0:r1]
-        else:
-            rand = torch.randint(0, n, (r1 - r0, max_step, parallel, m),
-                                 generator=generator, dtype=torch.int32,
-                                 device=dev)
+        rand = _as_randoms(step_randoms(r0, r1), dev)
         _, popped = _beam_search(vectors, graph, start_ids, vectors[r0:r1],
                                  rand, n=n, m=m, max_step=max_step,
                                  parallel=parallel)

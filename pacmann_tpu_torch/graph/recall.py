@@ -15,7 +15,6 @@ import torch
 
 from pacmann_tpu_torch.graph.beam import PlaintextEngine
 from pacmann_tpu_torch.graph.beam_host import BasicGraphOracle, BeamSearcher
-from pacmann_tpu_torch.graph.build import graph_build_not_ported
 from pacmann_tpu_torch.ops.distance import l2_distance
 from pacmann_tpu_torch.utils import cuda_lib
 from pacmann_tpu_torch.utils.u32 import smallest_k_keyed
@@ -90,12 +89,13 @@ def evaluate_graph_quality(vectors, graph, num_queries: int = 100,
     and average steps (build_graph.go:764-805: k=20, maxStep=20, parallel=2).
 
     use_engine: the batched PlaintextEngine on `device` (as there: None
-    means CUDA for numpy vectors), else the host BeamSearcher. search_fn,
-    the JAX package's hook for the graph build's compiled gate, comes with
-    the graph build and raises until then."""
-    if search_fn is not None:
-        raise graph_build_not_ported(
-            "evaluate_graph_quality(search_fn=...), the graph build's gate,")
+    means CUDA for numpy vectors), else the host BeamSearcher.
+
+    search_fn(vectors, graph, start_ids, queries, seed) -> (ids, steps):
+    a search the caller brings (the graph build's gate does), given f32
+    vectors, int32 graph, the start ids arange(int(sqrt(n))) and f32
+    queries as tensors on `device`, and the seed in place of the JAX
+    hook's PRNG key."""
     rng = np.random.default_rng(seed)
     n = vectors.shape[0]
     targets = rng.integers(0, n, size=num_queries)
@@ -105,7 +105,15 @@ def evaluate_graph_quality(vectors, graph, num_queries: int = 100,
     else:
         queries = np.asarray(vectors[targets])
 
-    if use_engine:
+    if search_fn is not None:
+        dev = cuda_lib.default_device(vectors, device)
+        ids, steps = search_fn(
+            torch.as_tensor(vectors, dtype=torch.float32, device=dev),
+            torch.as_tensor(np.asarray(_numpy(graph), np.int32), device=dev),
+            torch.arange(int(np.sqrt(n)), device=dev),
+            torch.as_tensor(queries, dtype=torch.float32, device=dev), seed)
+        ids, steps = _numpy(ids), _numpy(steps)
+    elif use_engine:
         engine = PlaintextEngine(vectors, graph, device=device)
         ids, steps = engine.search(queries, k=20, max_step=20, parallel=2,
                                    seed=seed)

@@ -43,16 +43,7 @@ def l2_distance_plain(queries, points, device=None) -> torch.Tensor:
     q, p = _f32(queries, dev), _f32(points, dev)
     qn = (q * q).sum(dim=-1, keepdim=True)                 # (Q, 1)
     pn = (p * p).sum(dim=-1, keepdim=True).T               # (1, B)
-    if q.is_cuda:
-        # full fp32 product whatever the caller's global TF32 setting
-        matmul = torch.backends.cuda.matmul
-        prev = matmul.allow_tf32
-        matmul.allow_tf32 = False
-        try:
-            cross = q @ p.T
-        finally:
-            matmul.allow_tf32 = prev
-    else:
+    with cuda_lib.fp32_matmul(q.device):
         cross = q @ p.T
     # (qn + pn) - 2*cross in place: one (Q, B) buffer besides the product
     out = qn + pn

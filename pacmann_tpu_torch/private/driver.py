@@ -6,13 +6,15 @@ data, load a graph, PIR preprocessing, the query loop with proactive hint
 refresh, timing split online vs maintenance, answer/recall/report output.
 The CLI wrapper lives in pacmann_tpu_torch.cli.private_search.
 
-The PIR engines keep their DB on `cfg.device` (None: the card, raising where
-there is none; "cpu": the kernels' plain versions). Differences from the JAX
-driver: building a graph (no graph file and build_graph=True) waits for the
-graph build's port and raises; `profile_dir` records a torch.profiler trace
-of the query loop, whichever engine runs it; the device-fused search draws
-its step randoms from its torch generator, reseeded per group where the JAX
-driver passes a seed, unless `step_randoms_fn` hands them in.
+The PIR engines keep their DB, and the graph build runs, on `cfg.device`
+(None: the card, raising where there is none; "cpu": the kernels' plain
+versions). Differences from the JAX driver: `profile_dir` records a
+torch.profiler trace of the query loop, whichever engine runs it; the
+device-fused search draws its step randoms from its torch generator,
+reseeded per group where the JAX driver passes a seed, unless
+`step_randoms_fn` hands them in; the graph build draws from torch
+generators (graph/build.py), so it builds another graph than JAX's from
+the same seed.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from pacmann_tpu_torch.graph.beam_host import BeamSearcher
-from pacmann_tpu_torch.graph.build import graph_build_not_ported
+from pacmann_tpu_torch.graph.build import build_graph
 from pacmann_tpu_torch.graph.recall import compute_recall
 from pacmann_tpu_torch.io.loaders import (
     load_bvecs,
@@ -93,6 +95,9 @@ class PrivateSearchResult:
     prep_time_s: float
     success_rate: float
     report: PrivateSearchReport
+    # the graph build's stats (graph/build.py::build_graph's `stats`) when
+    # this run built the graph, else empty
+    build_stats: dict = dataclasses.field(default_factory=dict)
 
 
 def dataset_name(input_file: str, n: int, dim: int, m: int) -> str:
@@ -109,18 +114,21 @@ def _load_or_make_inputs(cfg: PrivateSearchConfig, rng):
     elif cfg.input_file and not cfg.graph_file:
         # the graph cache under the reference's default name
         # {workingDir}/{data}_{n}_{dim}_{m}_graph.npy (private-search.go:
-        # 130-137)
+        # 130-137); the aux record lands next to it as in :148-153
         work = os.path.dirname(cfg.input_file)
         ds = dataset_name(cfg.input_file, cfg.n, cfg.dim, cfg.m)
         cfg = dataclasses.replace(
             cfg, graph_file=os.path.join(work, ds + "_graph.npy"))
 
+    build_stats = {}
+    build_vecs = None  # the compact (u8) build input when the source is bvecs
     if cfg.input_file and cfg.input_file.endswith(".bvecs"):
-        # read the byte file once, in its compact u8 form (the graph
-        # build's input once it is ported); the f32 view derives from it
-        # without a second file pass (u8 -> f32 is exact)
-        vectors = load_bvecs(cfg.input_file, cfg.n, cfg.dim,
-                             keep_bytes=True).astype(np.float32)
+        # read the byte file once: the u8 form uploads 4x smaller for the
+        # graph build and widens to f32 on the device (the same edges);
+        # the f32 view derives from it without a second file pass
+        build_vecs = load_bvecs(cfg.input_file, cfg.n, cfg.dim,
+                                keep_bytes=True)
+        vectors = build_vecs.astype(np.float32)
     elif cfg.input_file:
         vectors = load_float32_matrix(cfg.input_file, cfg.n, cfg.dim)
     else:
@@ -129,8 +137,24 @@ def _load_or_make_inputs(cfg: PrivateSearchConfig, rng):
     if cfg.graph_file and os.path.exists(cfg.graph_file):
         graph = load_int_matrix(cfg.graph_file, cfg.n, cfg.m)
     elif cfg.build_graph:
-        raise graph_build_not_ported(
-            "no graph file and build_graph=True: building the graph")
+        # build-if-missing with on-disk caching and the build-time aux
+        # record (private-search.go:139-160, aux file :148-153)
+        tb = time.perf_counter()
+        graph = build_graph(build_vecs if build_vecs is not None else vectors,
+                            cfg.m, seed=cfg.seed, verbose=cfg.verbose,
+                            device=cuda_lib.default_device(None, cfg.device),
+                            stats=build_stats)
+        build_s = time.perf_counter() - tb
+        if cfg.graph_file:
+            save_int_matrix(cfg.graph_file, graph)
+            base, _ = os.path.splitext(cfg.graph_file)
+            # {dataset}_graph.npy -> {dataset}_graph_aux.txt
+            ds = (dataset_name(cfg.input_file, cfg.n, cfg.dim, cfg.m)
+                  if cfg.input_file else f"synthetic_{cfg.n}_{cfg.dim}_{cfg.m}")
+            with open(base + "_aux.txt", "w") as f:
+                f.write(f"Dataset: {ds}\n"
+                        f"Graph generation time: {build_s:.6f} s\n"
+                        f"n={cfg.n} dim={cfg.dim} m={cfg.m}\n")
     else:
         # EXPLICITLY requested no build: a random graph gives meaningless
         # recall — never fall back to this silently.
@@ -142,7 +166,7 @@ def _load_or_make_inputs(cfg: PrivateSearchConfig, rng):
         queries = load_float32_matrix(cfg.query_file, cfg.q, cfg.dim)
     else:
         queries = gen_random_matrix(cfg.q, cfg.dim, rng)
-    return vectors, np.asarray(graph, np.int64), queries
+    return vectors, np.asarray(graph, np.int64), queries, build_stats
 
 
 def _profile(profile_dir: str, device: torch.device):
@@ -181,8 +205,9 @@ def run_private_search(cfg: PrivateSearchConfig,
     search's torch generator, seeded with that number."""
     device = cuda_lib.default_device(None, cfg.device)
     rng = np.random.default_rng(cfg.seed)
+    build_stats = {}
     if vectors is None or queries is None:
-        v2, g2, q2 = _load_or_make_inputs(cfg, rng)
+        v2, g2, q2, build_stats = _load_or_make_inputs(cfg, rng)
         vectors = vectors if vectors is not None else v2
         graph = graph if graph is not None else g2
         queries = queries if queries is not None else q2
@@ -261,7 +286,7 @@ def run_private_search(cfg: PrivateSearchConfig,
         search_time = time.perf_counter() - t0 - maintenance
         avg_time = search_time / max(cfg.q, 1)
         return _finalize(cfg, oracle, answers, steps, avg_time, maintenance,
-                         prep_time, gnd, window)
+                         prep_time, gnd, window, build_stats)
 
     t0 = time.perf_counter()
     with profile_cm:
@@ -287,11 +312,11 @@ def run_private_search(cfg: PrivateSearchConfig,
     search_time = time.perf_counter() - t0 - maintenance
     avg_time = search_time / max(cfg.q, 1)
     return _finalize(cfg, oracle, answers, steps, avg_time, maintenance,
-                     prep_time, gnd, window)
+                     prep_time, gnd, window, build_stats)
 
 
 def _finalize(cfg, oracle, answers, steps, avg_time, maintenance, prep_time,
-              gnd, window):
+              gnd, window, build_stats):
     pir = oracle.pir
     if cfg.output_file:
         save_int_matrix(cfg.output_file, answers)
@@ -337,4 +362,5 @@ def _finalize(cfg, oracle, answers, steps, avg_time, maintenance, prep_time,
         prep_time_s=prep_time,
         success_rate=oracle.success_rate(),
         report=report,
+        build_stats=build_stats,
     )

@@ -12,6 +12,7 @@ package and use the plain torch versions on CPU tensors.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -110,6 +111,23 @@ def default_device(x, device=None) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def fp32_matmul(device: torch.device):
+    """Full fp32 matrix products on a CUDA device while the block runs,
+    whatever the caller's TF32 setting (the JAX package's
+    Precision.HIGHEST); nothing to do on the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = prev
 
 
 def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype):

@@ -281,9 +281,3 @@ def test_oracle_default_device_is_cuda(data, monkeypatch):
         oracle.PIRGraphOracle(vecs, graph)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build.choose_start_ids(vecs, 4)
-
-
-def test_build_raise_names_the_roadmap_item():
-    err = build.graph_build_not_ported("building one")
-    assert isinstance(err, NotImplementedError)
-    assert 'ROADMAP Queue 1, "The graph build"' in str(err)

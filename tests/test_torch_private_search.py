@@ -5,7 +5,8 @@ on every engine, at concurrent 1 and 8, in benchmarking and non-private
 mode, across proactive hint refreshes; "device-fused" with the JAX search's
 own step draws fed in. Then the inputs, outputs and errors: synthetic data
 and the random graph, the bvecs read, the graph cache name, the output and
-report files, the graph build's raise, the CLI and the default device.
+report files, the graph build with its cache and aux record, the CLI and
+the default device.
 
 The host engines re-key a refresh from secrets.randbits when no generator
 is passed (the reference's behaviour); the `pinned_randbits` fixture makes
@@ -162,6 +163,7 @@ def test_synthetic_inputs_and_random_graph_match_jax(capsys):
                                         np.random.default_rng(11))
     got = driver._load_or_make_inputs(driver.PrivateSearchConfig(**kw),
                                       np.random.default_rng(11))
+    assert got[3] == {}  # nothing built
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     g = got[1]
@@ -204,18 +206,50 @@ def test_bvecs_input_and_graph_cache_name(data, tmp_path, monkeypatch):
     assert got.success_rate > 0.5
 
 
-def test_build_graph_raises_named_error(tmp_path):
-    """No graph file and build_graph=True: the graph build is not ported,
-    and the error names its ROADMAP item; nothing falls back to a random
-    graph."""
-    with pytest.raises(NotImplementedError,
-                       match='Queue 1, "The graph build"'):
-        driver.run_private_search(driver.PrivateSearchConfig(
-            n=64, dim=4, m=4, q=2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="graph build"):
-        driver.run_private_search(driver.PrivateSearchConfig(
-            n=64, dim=4, m=4, q=2, device="cpu", input_file="synthetic",
-            graph_file=str(tmp_path / "missing.npy")))
+def test_build_graph_raises_named_error(tmp_path, monkeypatch):
+    """No graph file and build_graph=True: the driver builds the graph
+    (the port's build_graph, from the config's seed: the graph a direct
+    call gives), caches it at the reference's name and writes the aux
+    record's three lines next to it, as the JAX driver does; a .bvecs
+    input is built from its u8 form; the next run loads the cached graph
+    and builds nothing. (It raised before the build was ported.)"""
+    from pacmann_tpu_torch.graph import build as tbuild
+
+    rng = np.random.default_rng(4)
+    raw = rng.integers(0, 256, size=(300, D), dtype=np.uint8)
+    p = str(tmp_path / "base.bvecs")
+    _write_bvecs(p, raw)
+    inputs = []
+    real = tbuild.build_graph
+
+    def spy(vectors, *a, **kw):
+        inputs.append(np.asarray(vectors).dtype)
+        return real(vectors, *a, **kw)
+
+    monkeypatch.setattr(driver, "build_graph", spy)
+    kw = dict(n=300, dim=D, m=M, q=2, max_step=4, parallel=2, seed=6,
+              input_file=p, device="cpu")
+    res = driver.run_private_search(driver.PrivateSearchConfig(**kw))
+    assert inputs == [np.uint8] and res.answers.shape == (2, 10)
+    assert set(res.build_stats["phases"]) >= {"bootstrap", "corridors"}
+    cached = tmp_path / f"base_300_{D}_{M}_graph.npy"
+    graph = load_int_matrix(str(cached), 300, M)
+    assert np.array_equal(graph, real(raw, M, seed=6, device="cpu"))
+    aux = (tmp_path / f"base_300_{D}_{M}_graph_aux.txt").read_text()
+    lines = aux.splitlines()
+    assert lines[0] == f"Dataset: base_300_{D}_{M}"
+    assert lines[1].startswith("Graph generation time: ")
+    assert lines[2] == f"n=300 dim={D} m={M}"
+    again = driver.run_private_search(driver.PrivateSearchConfig(**kw))
+    assert inputs == [np.uint8] and again.build_stats == {}
+    # synthetic vectors with an explicit graph file: built and saved there
+    out = tmp_path / "missing.npy"
+    driver.run_private_search(driver.PrivateSearchConfig(
+        n=64, dim=4, m=4, q=2, device="cpu", input_file="synthetic",
+        graph_file=str(out)))
+    assert load_int_matrix(str(out), 64, 4).shape == (64, 4)
+    assert (tmp_path / "missing_aux.txt").read_text().startswith(
+        "Dataset: synthetic_64_4_4\n")
 
 
 @pytest.mark.parametrize("ext", [".txt", ".npy"])

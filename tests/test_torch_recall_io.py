@@ -17,8 +17,8 @@ from pacmann_tpu.cli import exact_search as jexact
 from pacmann_tpu.graph import recall as jrecall
 from pacmann_tpu.io import loaders as jloaders
 from pacmann_tpu.ops.distance import l2_distance_xla
-from pacmann_tpu_torch.cli import ann, exact_search
-from pacmann_tpu_torch.graph import recall
+from pacmann_tpu_torch.cli import ann, cluster_search, exact_search
+from pacmann_tpu_torch.graph import beam, build, cluster, recall
 from pacmann_tpu_torch.io import loaders
 from pacmann_tpu_torch.ops import distance
 from pacmann_tpu_torch.utils.u32 import smallest_k, smallest_k_keyed
@@ -167,21 +167,51 @@ def test_exact_search_main_matches_jax(capsys):
     assert got == _printed(capsys, "Recall@10") == "1.0000"
 
 
-def test_unported_paths_raise(mini, monkeypatch):
-    """-shards > 1, ann without a graph file and the graph build's gate name
-    the ROADMAP item that ports them by its title; nothing runs on one
-    device or builds a stand-in graph."""
+def test_unported_paths_raise(mini, capsys, tmp_path):
+    """-shards > 1 names the ROADMAP item that ports it by its title;
+    nothing runs on one device. The three calls that raised until the graph
+    build was ported now run: ann without a graph file and with a missing
+    one (built, then saved there), and the gate's search_fn hook."""
     base, graph, _ = mini
     with pytest.raises(NotImplementedError, match='Queue 1, "Multi-device"'):
         exact_search.main(["-n", "64", "-q", "2", "-shards", "2"],
                           device="cpu")
-    with pytest.raises(NotImplementedError, match='Queue 1, "The graph build"'):
-        ann.main(["-n", "64", "-q", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match='Queue 1, "The graph build"'):
-        ann.main(["-n", "64", "-q", "2", "-graph", "/nonexistent.npy"],
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match='Queue 1, "The graph build"'):
-        recall.evaluate_graph_quality(base, graph, search_fn=lambda *a: a)
+    assert ann.main(["-n", "64", "-q", "2", "-m", "4"], device="cpu") == 0
+    assert "Graph build time: " in capsys.readouterr().out
+    path = tmp_path / "built.npy"
+    assert ann.main(["-n", "64", "-q", "2", "-m", "4", "-graph", str(path)],
+                    device="cpu") == 0
+    assert jloaders.load_int_matrix(str(path), 64, 4).shape == (64, 4)
+    seen = []
+
+    def search_fn(v, g, starts, q, seed):
+        seen.append((v.dtype, g.dtype, starts.tolist(), q.shape, seed))
+        return beam.PlaintextEngine(v, g, start_ids=starts).search(
+            q, 20, 20, 2, seed=seed)
+
+    got = recall.evaluate_graph_quality(base, graph, num_queries=40, seed=3,
+                                        search_fn=search_fn, device="cpu")
+    assert seen == [(torch.float32, torch.int32, list(range(16)), (40, DIM),
+                     3)]
+    assert got == recall.evaluate_graph_quality(base, graph, num_queries=40,
+                                                seed=3, device="cpu")
+
+
+def test_ann_main_builds_like_jax(mini, capsys):
+    """ann without -graph on the mini fixtures: both packages build (each
+    from its own draws) and print a build time; the port's recall@10 on
+    the 8 queries is at least JAX's printed one less 0.05 (their graphs
+    differ, so an id or two of the 80 may)."""
+    argv = ["-n", str(N), "-d", str(DIM), "-m", "8", "-k", str(K), "-q",
+            str(Q), "-input", _fix("base"), "-query", _fix("query"),
+            "-gnd", _fix("gnd"), "-step", "8", "-parallel", "2"]
+    assert ann.main(argv, device="cpu") == 0
+    out = capsys.readouterr().out
+    assert "Graph build time: " in out
+    got = float(re.search(r"Recall@10: ([0-9.]+)", out).group(1))
+    assert jann.main(argv) == 0
+    want = float(_printed(capsys, "Recall@10"))
+    assert got >= want - 0.05, (got, want)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -191,6 +221,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         exact_search.main(["-n", "64", "-q", "2"])
+    # the graph build and the cluster baseline, and both CLIs that run them
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ann.main(["-n", "64", "-q", "2", "-m", "4"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cluster_search.main(["-n", "64", "-q", "2"])
+    v64 = np.random.default_rng(0).random((64, 4), dtype=np.float32)
+    for fn in (lambda x: build.build_graph(x, 4, rounds=1),
+               lambda x: cluster.kmeans(x, 4, n_iter=1),
+               lambda x: cluster.ClusterSearcher(x, 4, n_iter=1)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(v64)
+        fn(torch.from_numpy(v64))        # a CPU tensor stays on the CPU
     v = np.zeros((8, 4), np.float32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         recall.brute_force_knn(v, v, 2)
@@ -207,6 +249,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
 def test_port_imports_no_jax_in_new_modules():
     code = ("import sys, pacmann_tpu_torch.graph, pacmann_tpu_torch.io, "
             "pacmann_tpu_torch.cli.ann, pacmann_tpu_torch.cli.exact_search, "
-            "pacmann_tpu_torch.ops.distance; "
+            "pacmann_tpu_torch.ops.distance, pacmann_tpu_torch.graph.build, "
+            "pacmann_tpu_torch.graph.cluster, "
+            "pacmann_tpu_torch.cli.cluster_search, "
+            "pacmann_tpu_torch.private.driver; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], check=True)
