@@ -132,7 +132,31 @@ queries). Phases, in order:
      its raw row, success at least 0.98); after the "fused" paths' counts,
      one more (untimed) batch-96 and fused group 16 and 1 ("fused") or
      batch ("5M fused") with the rounds that took a row scan in K3's walk
-     counted; then the plaintext paths: exact
+     counted; then the multi-device tier as four logical shards on
+     the card (make_mesh(devices=["cuda:0"] * 4), "4 shards on 1
+     device(s)"): ShardedPianoEngine on "xla", "pallas", "fused" and
+     table-free "xla" and ChunkShardedPianoEngine (S_loc = 31) on "xla",
+     each through a warm and a timed prep, three batch-96 batches and
+     fused groups 1 and 16 against DevicePianoEngine from the same seeds
+     (state bit-equal after each stage, the same answers and fetch
+     counters, launches counted from zero and exactly four times the
+     single engine's, the chunk engine's K5 for K1 and one select),
+     sharded_l2_topk at 1,000 x 1M x 128 equal to knn_search,
+     cli.exact_search -shards 4 at n = 100,003 (K6 launches exact) and
+     dryrun_multichip(8) on eight logical shards; then the SIFT100M
+     deployment's per-chip shard at full size (12.5M entries of 640 B,
+     P = 2, C = 8,192, S = 764, Hp = 57,344, 12.8 GB packed, 3.2e9 int32
+     elements): its rows hashed on the card from (id, column), a 2-shard
+     ShardedPianoEngine and the single engine on route "fused" (state
+     equal shard by shard after prep, after 20 batches of 16 ids, every
+     served entry equal to its formula, success at least 0.98, and after
+     the fused search of 4 queries, 32 steps, parallel 4, quota 64: the
+     same answers and fetch counters, success within 0.03 of the model),
+     launches exact (the sharded engine's twice the single's), K3 and K4
+     against their plain versions at the shard's quotas, K1 at its prep
+     lattice (2, 179,584, 764) and K2 at its prep gather, prep s, batch
+     ms, fused ms/query with the maintenance split, resident bytes per
+     engine and peak device memory; then the plaintext paths: exact
      search (ids through K6 equal to the cuBLAS form's and to a float64
      scan's; ms/query; cli.exact_search.main once), the plaintext engine
      at full width on a random graph (ms/query, recall@10 against
@@ -3033,6 +3057,526 @@ def private_search_phase(seed: int, reset, counted) -> tuple[dict, dict]:
     return res, launches
 
 
+# the multi-device phase: the sharded engines as logical shards on one card
+# at the canonical deployment (P = 16, S = 124)
+MD_SHARDS = 4
+MD_PATHS = (("xla", False, False), ("pallas", False, False),
+            ("fused", False, False), ("xla", True, False),
+            ("xla", False, True))           # (route, table-free, chunk)
+MD_EXACT_N = 100_003                  # exact_search -shards 4: n % 4 != 0
+# the SIFT100M deployment's per-chip shard (run-private-search.sh's
+# commented block, reports/sift100m_plan.json: 8 chips x 2 partitions):
+# 12.5M entries of 640 B, batch 4 (P = 2), the probe's per-step shapes
+SHARD_N, SHARD_BATCH = 12_500_000, 4
+SHARD_BATCHES, SHARD_IDS = 20, 16      # quota 8 a partition
+SHARD_STEPS, SHARD_PARALLEL, SHARD_QUERIES, SHARD_STARTS = 32, 4, 4, 64
+SHARD_ROUTE = "fused"
+SHARD_PREPS = 3                        # timed preps an engine, after a warm
+SHARD_PARAMS = dict(C=8192, S=764, Hp=57_344, R=160, T=179_584, k=2,
+                    max_q=39_120)
+# the shard's rows, a hash of (id, column) (scripts/probe_100m_shard.py's
+# host_vec / host_nbrs): 128 f32 in [0, 1) || 32 neighbour ids below n
+MIX_A, MIX_B, M32 = 2654435761, 0x9E3779B9, 0xFFFFFFFF
+
+
+def path_kernels(route: str, table_free: bool, chunk: bool = False) -> tuple:
+    """The kernels an engine path launches; it launches no other. The
+    chunk-sharded engine (chunk) evaluates its offset columns with K5."""
+    own = ("aes_mmo_points" if chunk else "aes_mmo_tables", "xor_gather")
+    if route == "pallas":
+        own += ("claim_select",)
+    if table_free:
+        own += ("aes_mmo_points",)         # "fused" takes the fixpoint
+    elif route == "fused":
+        own += ("select_full",)
+    return own
+
+
+def launch_counts(counters) -> collections.Counter:
+    return collections.Counter({k: fn.launches
+                                for k, fn in counters.items()})
+
+
+def state_copy(e) -> dict:
+    return {k: v.clone() for k, v in e.state.items()}
+
+
+def states_equal(a: dict, b: dict, label: str):
+    import torch
+
+    check(set(a) == set(b), f"{label}: state keys differ")
+    for key in a:
+        check(torch.equal(a[key], b[key]), f"{label}: state {key} differs")
+
+
+def md_drive(e, seed: int, starts) -> dict:
+    """One engine through the multi-device path: a warm and a timed prep
+    (the same seed), three
+    batch-96 batches, fused groups 1 and 16 (20 steps, parallel 3), with
+    the state after each stage, the answers and the times."""
+    import torch
+
+    from pacmann_tpu_torch.private.fused_search import FusedPrivateSearch
+
+    rec = {}
+    e.preprocessing(rng=np.random.default_rng(seed))          # warm
+    t0 = time.perf_counter()
+    e.preprocessing(rng=np.random.default_rng(seed))
+    rec["prep_s"] = time.perf_counter() - t0
+    rec["state prep"] = state_copy(e)
+    rng = np.random.default_rng(seed + 1)
+    e._rng = np.random.default_rng(seed + 2)
+    rec["batches"], lat = [], []
+    for _ in range(3):
+        ids = [int(i) for i in rng.integers(0, N, 96)]
+        t0 = time.perf_counter()
+        rec["batches"].append((ids, e.query(ids)))
+        lat.append(time.perf_counter() - t0)
+    rec["batch96_ms"] = [t * 1e3 for t in lat]
+    rec["state batches"] = state_copy(e)
+    sids, svecs, snbrs = starts
+    fs = FusedPrivateSearch(e, sids, svecs, snbrs, dim=DIM, m=M, n=N)
+    fs.generator.manual_seed(seed + 3)
+    frng = np.random.default_rng(seed + 4)
+    for G in (1, 16):
+        q = frng.random((G, DIM), dtype=np.float32)
+        t0 = time.perf_counter()
+        rec[f"fused {G}"] = fs.search(q, k=10, max_step=20, parallel=3)
+        rec[f"fused {G} ms/query"] = (time.perf_counter() - t0) * 1e3 / G
+        check(((rec[f"fused {G}"] >= 0) & (rec[f"fused {G}"] < N)).all(),
+              f"fused group {G}: answers are not valid ids")
+    rec["fetch_stats"] = fs.fetch_stats.copy()
+    rec["refreshes"] = fs.refreshes
+    rec["state fused"] = state_copy(e)
+    torch.cuda.synchronize()
+    return rec
+
+
+def multi_device_phase(raw: np.ndarray, db, seed: int, reset, read_counts,
+                       counters) -> tuple[dict, dict]:
+    """The multi-device tier on one card, MD_SHARDS logical shards
+    (make_mesh(devices=["cuda:0"] * 4)) at the canonical deployment: each
+    of MD_PATHS on the sharded engine (ShardedPianoEngine, or
+    ChunkShardedPianoEngine with S_loc = 31) against DevicePianoEngine on
+    the same seeds: bit-equal state after prep, after three batch-96
+    batches and after fused groups 1 and 16, the same answers and fetch
+    counters, every answered row its raw row (success at least 0.98); the
+    sharded path's launches counted from zero and exactly MD_SHARDS times
+    the single engine's (per shard one launch of its each; the chunk
+    engine's K5 per K1 of the single engine, its select once). Then
+    sharded_l2_topk at L2_Q x L2_N x 128 against knn_search and
+    cli.exact_search -shards 4 at an n not divisible by 4 (K6 launches
+    exact), and dryrun_multichip(8) on eight logical shards."""
+    import torch
+
+    from pacmann_tpu_torch.cli import exact_search
+    from pacmann_tpu_torch.graph.recall import knn_search
+    from pacmann_tpu_torch.parallel.dryrun import dryrun_multichip
+    from pacmann_tpu_torch.parallel.sharding import (
+        make_mesh, replicate, shard_rows, sharded_l2_topk)
+    from pacmann_tpu_torch.pir.device_engine import DevicePianoEngine
+    from pacmann_tpu_torch.pir.sharded_engine import (
+        ChunkShardedPianoEngine, ShardedPianoEngine)
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=["cuda:0"] * MD_SHARDS)
+    where = mesh.describe()
+    print(f"-- multi-device: {where}")
+    sids = np.random.default_rng(seed).choice(N, 1000, replace=False)
+    srows = raw[sids]
+    starts = (sids, np.ascontiguousarray(srows[:, :DIM]).view("<f4"),
+              srows[:, DIM:DIM + M].astype(np.int64) % N)
+    out, launches = {}, {}
+    for route, tf, chunk in MD_PATHS:
+        path = (f"multi-device {'chunk ' if chunk else ''}{route}"
+                + (" table-free" if tf else ""))
+        reset()
+        t0 = time.perf_counter()
+        if chunk:
+            sh = ChunkShardedPianoEngine(N, ENTRY_BYTES, BATCH, raw, FAIL,
+                                         mesh, kernel_route=route)
+        else:
+            sh = ShardedPianoEngine(N, ENTRY_BYTES, BATCH, raw, FAIL, mesh,
+                                    kernel_route=route, table_free=tf)
+        pack_s = time.perf_counter() - t0
+        got = md_drive(sh, seed + 10, starts)
+        launches[path] = read_counts(path, path_kernels(route, tf, chunk))
+        single = DevicePianoEngine(N, ENTRY_BYTES, BATCH, None, FAIL,
+                                   packed_db=db, kernel_route=route,
+                                   table_free=tf)
+        before = launch_counts(counters)
+        want = md_drive(single, seed + 10, starts)
+        one = launch_counts(counters) - before
+        del single
+        for stage in ("state prep", "state batches", "state fused"):
+            states_equal(got[stage], want[stage], f"{path} {stage}")
+        exact = total = 0
+        for (ids, a), (_, b) in zip(got["batches"], want["batches"]):
+            check(np.array_equal(a, b), f"{path}: answers differ")
+            ok = (a == raw[ids]).all(axis=1)
+            check((ok | ~a.any(axis=1)).all(), f"{path}: a row answered "
+                  "wrongly")
+            exact += int(ok.sum())
+            total += len(ids)
+        check(exact / total >= 0.98, f"{path}: success {exact / total:.4f}")
+        for G in (1, 16):
+            check(np.array_equal(got[f"fused {G}"], want[f"fused {G}"]),
+                  f"{path}: fused group {G} answers differ")
+        check(np.array_equal(got["fetch_stats"], want["fetch_stats"])
+              and got["refreshes"] == want["refreshes"],
+              f"{path}: fetch counters differ")
+        # per shard one launch of each of the single engine's; the chunk
+        # engine evaluates its columns with K5 where the single engine
+        # builds the table with K1, and selects once
+        expect = collections.Counter({k: MD_SHARDS * v
+                                      for k, v in one.items()})
+        if chunk:
+            expect["aes_mmo_points"] = expect.pop("aes_mmo_tables", 0)
+            for k in ("claim_select", "select_full"):
+                expect[k] = one[k]
+        expect = {k: expect.get(k, 0) for k in KERNELS}
+        check(launches[path] == expect,
+              f"{path}: launches {launches[path]} != {expect} "
+              f"({MD_SHARDS} shards, single {dict(one)})")
+        del sh
+        torch.cuda.empty_cache()
+        out[path] = dict(
+            pack_s=pack_s, prep_s=got["prep_s"],
+            single_prep_s=want["prep_s"], batch96_ms=got["batch96_ms"],
+            single_batch96_ms=want["batch96_ms"], success=exact / total,
+            single_launches=dict(one),
+            **{f"fused {G} ms/query": got[f"fused {G} ms/query"]
+               for G in (1, 16)},
+            **{f"single fused {G} ms/query": want[f"fused {G} ms/query"]
+               for G in (1, 16)})
+        print(f"{path} ({where}): pack {pack_s:.3f} s; prep s "
+              f"{got['prep_s']:.4f} (single {want['prep_s']:.4f}); "
+              f"batch-96 ms median {np.median(got['batch96_ms']):.3f} "
+              f"(single {np.median(want['batch96_ms']):.3f}); fused ms/query"
+              f" group 1 {got['fused 1 ms/query']:.3f} (single "
+              f"{want['fused 1 ms/query']:.3f}), group 16 "
+              f"{got['fused 16 ms/query']:.3f} (single "
+              f"{want['fused 16 ms/query']:.3f}); success "
+              f"{exact / total:.4f}; state, answers and fetch counters "
+              "equal the single engine's")
+
+    # the row-sharded exact search
+    path = "multi-device l2"
+    rng = np.random.default_rng(seed + 20)
+    vt = torch.as_tensor(int_vectors(rng, L2_N), dtype=torch.float32,
+                         device="cuda")
+    qt = torch.as_tensor(int_vectors(rng, L2_Q), dtype=torch.float32,
+                         device="cuda")
+    shards = shard_rows(mesh, vt)
+    q_rep = replicate(mesh, qt)
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, dists = sharded_l2_topk(mesh, q_rep, shards, 10)
+    torch.cuda.synchronize()
+    topk_ms = (time.perf_counter() - t0) * 1e3
+    exact_search.main(["-n", str(MD_EXACT_N), "-q", "100", "-k", "10",
+                       "-shards", str(MD_SHARDS)],
+                      devices=["cuda:0"] * MD_SHARDS)
+    launches[path] = read_counts(path, ("l2_distance",))
+    check(launches[path]["l2_distance"] == 3 * MD_SHARDS,
+          f"{path}: {launches[path]['l2_distance']} K6 launches, not one a "
+          f"shard for the top-k and for each of the CLI's two scans")
+    want_d, want_i = knn_search(vt, qt, 10)
+    check(torch.equal(ids, want_i) and torch.equal(dists, want_d),
+          f"{path}: sharded top-k differs from knn_search")
+    print(f"{path} ({where}): sharded_l2_topk {L2_Q} x {L2_N} x {DIM} in "
+          f"{topk_ms:.3f} ms, ids and distances equal knn_search's")
+    out[path] = dict(topk_ms=topk_ms)
+    del vt, qt, shards, q_rep
+    torch.cuda.empty_cache()
+
+    path = "multi-device dryrun"
+    reset()
+    t0 = time.perf_counter()
+    dryrun_multichip(8, devices=["cuda:0"] * 8)
+    launches[path] = read_counts(path, ("aes_mmo_tables", "aes_mmo_points",
+                                        "xor_gather", "l2_distance"))
+    out[path] = dict(seconds=time.perf_counter() - t0)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"{path} (8 shards on 1 device(s)): passed in "
+          f"{out[path]['seconds']:.2f} s; multi-device phase "
+          f"{out['seconds']:.1f} s")
+    return out, launches
+
+
+def mul32(a, c: int):
+    """Low 32 bits of a * c for int64 tensors a in [0, 2^32) and c < 2^32,
+    without int64 overflow."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & M32
+
+
+def shard_entries(gidx, n: int):
+    """(len(gidx), 160) int32 rows of entries gidx (int64 CUDA tensor):
+    the probe's formula, hashed on the card."""
+    import torch
+
+    g = gidx.long()[:, None]
+    w = torch.arange(DIM, device=g.device)
+    h = (mul32((g * DIM + w) & M32, MIX_A) + MIX_B) & M32
+    vec = (h >> 8).to(torch.float32) * 2.0 ** -24
+    j = torch.arange(M, device=g.device)
+    h2 = mul32(g ^ ((j * MIX_B) & M32), MIX_A)
+    h2 ^= h2 >> 15
+    return torch.cat([vec.view(torch.int32), (h2 % n).to(torch.int32)], 1)
+
+
+def state_bytes(states) -> dict:
+    out = collections.Counter()
+    for st in states:
+        for k, v in st.items():
+            out[k] += v.numel() * v.element_size()
+    return dict(out)
+
+
+def sift100m_shard_phase(seed: int, reset, read_counts,
+                         counters) -> tuple[dict, dict]:
+    """The SIFT100M deployment's per-chip shard at full size: 12.5M rows
+    of 640 B made on the card from a hash of (id, column) (the host never
+    holds them), a 2-shard ShardedPianoEngine (one partition a shard) and
+    the single DevicePianoEngine on route SHARD_ROUTE from the same seeds.
+    Prep both (a warm and SHARD_PREPS timed preps from one seed; state
+    equal shard by shard), SHARD_BATCHES batches of
+    SHARD_IDS ids (quota 8; every served entry equals its formula, success
+    at least 0.98; answers and state equal), then the fused search over
+    each engine on SHARD_QUERIES queries (group 1, 32 steps, parallel 4,
+    m = 32: quota 64; the same answers and fetch counters, success within
+    0.03 of the model, answers ranked by their formula distances). Launches
+    counted from zero over both engines: the sharded engine's exactly twice
+    the single's. K3 and K4 against their plain versions at the shard's
+    quotas, K1 at its prep lattice and K2 at its prep gather. Prints prep s, batch ms, fused ms/query with the maintenance
+    split, resident state per engine and the peak device memory."""
+    import torch
+
+    from pacmann_tpu_torch.ops import aes, xor_scan
+    from pacmann_tpu_torch.parallel.sharding import make_mesh
+    from pacmann_tpu_torch.pir.device_engine import (
+        DevicePianoEngine, _build_skip)
+    from pacmann_tpu_torch.pir.params import expected_success_rate
+    from pacmann_tpu_torch.pir.sharded_engine import ShardedPianoEngine
+    from pacmann_tpu_torch.private.fused_search import FusedPrivateSearch
+
+    t_phase = time.perf_counter()
+    n = SHARD_N
+    print(f"-- SIFT100M shard: n={n}, {ENTRY_BYTES} B entries, batch "
+          f"{SHARD_BATCH}, route {SHARD_ROUTE}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    raw = torch.empty((n, ENTRY_BYTES // 4), dtype=torch.int32,
+                      device="cuda")
+    for lo in range(0, n, 1 << 20):
+        hi = min(n, lo + (1 << 20))
+        raw[lo:hi] = shard_entries(
+            torch.arange(lo, hi, device="cuda"), n)
+    vec = raw[:, :DIM].view(torch.float32)
+    nbr = raw[:, DIM:DIM + M]
+    check(bool(torch.isfinite(vec).all()) and bool((nbr >= 0).all())
+          and bool((nbr < n).all()), "the shard's rows are not a valid "
+          "vertex DB")
+    del vec, nbr
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+    t0 = time.perf_counter()
+    sh = ShardedPianoEngine(n, ENTRY_BYTES, SHARD_BATCH, raw, FAIL, mesh,
+                            kernel_route=SHARD_ROUTE)
+    torch.cuda.synchronize()
+    pack_sh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = DevicePianoEngine(n, ENTRY_BYTES, SHARD_BATCH, raw, FAIL,
+                               device="cuda", kernel_route=SHARD_ROUTE)
+    torch.cuda.synchronize()
+    pack_single = time.perf_counter() - t0
+    del raw
+    torch.cuda.empty_cache()
+    p, c = single.params, single.config
+    P = c.partition_num
+    got_params = dict(C=p.chunk_size, S=p.set_size, Hp=p.primary_hint_num,
+                      R=p.max_query_per_chunk,
+                      T=p.primary_hint_num + p.set_size
+                      * p.max_query_per_chunk, k=single.k,
+                      max_q=p.max_query_num)
+    check(got_params == SHARD_PARAMS and P == 2,
+          f"shard parameters {got_params}, P={P}")
+    print(f"shard rows on the card in {synth_s:.2f} s; pack: sharded "
+          f"{pack_sh:.2f} s ({mesh.describe()}), single {pack_single:.2f} s;"
+          f" P={P}, {got_params}; db {single.db.numel() * 4 / 1e9:.3f} GB "
+          f"({single.db.numel()} int32 elements)")
+
+    def ranges():
+        return zip(sh.shard_states, sh.partition_ranges)
+
+    def equal_by_shard(label):
+        for st, (lo, hi) in ranges():
+            for key, v in st.items():
+                check(torch.equal(v, single.state[key][lo:hi]),
+                      f"shard {label}: state {key} of partitions "
+                      f"[{lo}, {hi}) differs")
+
+    engines = {"sharded": sh, "single": single}
+    deltas = {k: collections.Counter() for k in engines}
+
+    def counted(name, fn):
+        before = launch_counts(counters)
+        res = fn()
+        deltas[name] += launch_counts(counters) - before
+        return res
+
+    path = "SIFT100M shard"
+    reset()
+    prep_s = {}
+    for name, e in engines.items():
+        times = []
+        for _ in range(1 + SHARD_PREPS):         # a warm prep, then timed
+            t0 = time.perf_counter()
+            counted(name, lambda: e.preprocessing(
+                rng=np.random.default_rng(seed + 1)))
+            times.append(time.perf_counter() - t0)
+        prep_s[name] = min(times[1:])
+        print(f"shard prep {name} s: "
+              + ", ".join(f"{t:.4f}" for t in times[1:])
+              + f" (min {prep_s[name]:.4f}; warm {times[0]:.4f})")
+    equal_by_shard("after prep")
+    rng = np.random.default_rng(seed + 2)
+    for e in engines.values():
+        e._rng = np.random.default_rng(seed + 3)
+    batch_ms = {k: [] for k in engines}
+    exact = total = 0
+    for _ in range(SHARD_BATCHES):
+        ids = [int(i) for i in rng.integers(0, n, SHARD_IDS)]
+        outs = {}
+        for name, e in engines.items():
+            t0 = time.perf_counter()
+            outs[name] = counted(name, lambda: e.query(ids))
+            batch_ms[name].append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(outs["sharded"], outs["single"]),
+              "shard batch: answers differ")
+        want = shard_entries(torch.tensor(ids, device="cuda"),
+                             n).cpu().numpy().view(np.uint32)
+        a = outs["sharded"]
+        ok = (a == want).all(axis=1)
+        check((ok | ~a.any(axis=1)).all(), "shard batch: an entry differs "
+              "from its formula")
+        exact += int(ok.sum())
+        total += len(ids)
+    success = exact / total
+    check(success >= 0.98, f"shard batch success {success:.4f} < 0.98")
+    equal_by_shard("after the batches")
+
+    sids = (np.arange(SHARD_STARTS, dtype=np.uint64) * MIX_A) % n
+    srows = shard_entries(torch.as_tensor(sids.astype(np.int64),
+                                          device="cuda"), n).cpu().numpy()
+    qs = np.random.default_rng(seed + 4).random(
+        (SHARD_QUERIES, DIM)).astype(np.float32)
+    quota = SHARD_PARALLEL * M // P
+    searches = {}
+    for name, e in engines.items():
+        fs = FusedPrivateSearch(e, sids.astype(np.int64),
+                                np.ascontiguousarray(srows[:, :DIM])
+                                .view(np.float32), srows[:, DIM:], dim=DIM,
+                                m=M, n=n)
+        fs.generator.manual_seed(seed + 5)
+        ans, ms = [], []
+        for i in range(SHARD_QUERIES):
+            t0 = time.perf_counter()
+            ans.append(counted(name, lambda: fs.search(
+                qs[i:i + 1], k=10, max_step=SHARD_STEPS,
+                parallel=SHARD_PARALLEL)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        searches[name] = dict(fs=fs, ans=np.concatenate(ans), ms=ms)
+    a, b = searches["sharded"], searches["single"]
+    check(np.array_equal(a["ans"], b["ans"]), "shard fused: answers differ")
+    check(np.array_equal(a["fs"].fetch_stats, b["fs"].fetch_stats)
+          and a["fs"].refreshes == b["fs"].refreshes == 0,
+          "shard fused: fetch counters or refreshes differ")
+    equal_by_shard("after the fused searches")
+    launches = {path: read_counts(path, ("aes_mmo_tables", "xor_gather",
+                                         "select_full"))}
+    expect = {k: 3 * deltas["single"][k] for k in KERNELS}
+    check(deltas["sharded"] == collections.Counter(
+        {k: 2 * v for k, v in deltas["single"].items()})
+          and launches[path] == expect,
+          f"shard launches: sharded {dict(deltas['sharded'])}, single "
+          f"{dict(deltas['single'])}, total {launches[path]}")
+    fstats = a["fs"].fetch_stats
+    want_step = int(round(fstats[0] / (SHARD_QUERIES * SHARD_STEPS)))
+    bound_rate = expected_success_rate(want_step, P, quota, FAIL)
+    fsucc = a["fs"].fetch_success_rate()
+    check(abs(fsucc - bound_rate) <= 0.03, f"shard fused: fetch success "
+          f"{fsucc:.4f} is not within 0.03 of {bound_rate:.4f}")
+    for row, q in zip(a["ans"], qs):
+        got_ids = row[row >= 0]
+        check(len(got_ids) > 0 and (got_ids < n).all(),
+              "shard fused: answers are not valid ids")
+        v = shard_entries(torch.as_tensor(got_ids, device="cuda"), n)[
+            :, :DIM].view(torch.float32)
+        d = ((v - torch.as_tensor(q, device="cuda")) ** 2).sum(1)
+        check(bool((d[1:] >= d[:-1] - 1e-4).all()), "shard fused: answers "
+              "not ranked by their formula distances")
+
+    windows = p.max_query_num // (quota * SHARD_STEPS)
+    per_engine = {}
+    for name, e in engines.items():
+        db_b = sum(x.numel() * 4 for x in (e.db if isinstance(e.db, list)
+                                             else [e.db]))
+        st = state_bytes(e.shard_states if name == "sharded"
+                         else [e.state])
+        per_engine[name] = dict(
+            prep_s=prep_s[name], batch_ms=batch_ms[name],
+            fused_ms_per_query=searches[name]["ms"],
+            maintenance_ms_per_query=prep_s[name] * 1e3 / windows,
+            db_bytes=db_b, state_bytes=st,
+            resident_gb=(db_b + sum(st.values())) / 1e9)
+        print(f"shard {name}: prep {prep_s[name]:.4f} s; batch of "
+              f"{SHARD_IDS} ms median {np.median(batch_ms[name]):.3f}, min "
+              f"{min(batch_ms[name]):.3f}; fused ms/query median "
+              f"{np.median(searches[name]['ms']):.1f} ({SHARD_STEPS} steps, "
+              f"parallel {SHARD_PARALLEL}, quota {quota}), maintenance "
+              f"{prep_s[name] * 1e3 / windows:.1f} ms/query ({windows} "
+              f"queries a window); resident {per_engine[name]['resident_gb']:.3f}"
+              f" GB: DB {db_b / 1e9:.3f}, "
+              + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in st.items()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"shard: batch success {exact}/{total} = {success:.4f}; fused "
+          f"fetch success {fsucc:.4f} vs model {bound_rate:.4f}; peak device "
+          f"memory {peak:.3f} GB with both engines")
+    # the kernels against their plain versions at the shard's shapes: K3
+    # and K4 at its quotas, K1 at its prep lattice and K2 at its prep
+    # gather (the row form: C = 8,192) on the single engine's DB
+    k34 = compare_protocol(single.state["table"], p, P, c.partition_size,
+                           (SHARD_IDS // P, quota), seed + 6,
+                           kinds=("uniform", "deep"), plain_reps=0)
+    del sh, engines, searches
+    torch.cuda.empty_cache()
+    R, Hp = p.max_query_per_chunk, p.primary_hint_num
+    T = Hp + p.set_size * R
+    rk = aes.round_keys([np.random.default_rng(seed + 7).bytes(16)
+                         for _ in range(P)]).to("cuda")
+    k1, table = k1_check(rk, T, p.set_size, p.chunk_mask, "SIFT100M shard",
+                         reps=3, plain_reps=1)
+    off = torch.where(_build_skip(P, T, Hp, R, p.set_size, "cuda"),
+                      xor_scan.SKIP, table).contiguous()
+    del table
+    k2 = k2_forms(single.db, off, single.k, "SIFT100M shard prep", reps=3,
+                  plain_reps=1)
+    del single, off
+    torch.cuda.empty_cache()
+    out = dict(synth_s=synth_s, pack_s=dict(sharded=pack_sh,
+                                            single=pack_single),
+               params=got_params, batch_success=success,
+               fetch_success=fsucc, fetch_bound=bound_rate,
+               peak_device_gb=peak, engines=per_engine, k3_k4=k34, k1=k1,
+               k2=k2, seconds=time.perf_counter() - t_phase)
+    print(f"SIFT100M shard phase {out['seconds']:.1f} s")
+    return out, launches
+
+
 def gpu_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3201,17 +3745,6 @@ def main() -> int:
     # 4. the main path once per route with the table, then table-free on
     # "xla" and "pallas", launch counters from zero for each path
 
-    def expected(route: str, table_free: bool) -> tuple:
-        """The kernels a path must launch; it launches no other."""
-        own = ("aes_mmo_tables", "xor_gather")
-        if route == "pallas":
-            own += ("claim_select",)
-        if table_free:
-            own += ("aes_mmo_points",)     # "fused" takes the fixpoint
-        elif route == "fused":
-            own += ("select_full",)
-        return own
-
     sids = np.random.default_rng(args.seed + 30).choice(N, 1000,
                                                         replace=False)
     srows = raw[sids]
@@ -3235,7 +3768,7 @@ def main() -> int:
             res["fused"] = {str(G): fused_phase(fs, G, 3,
                                                 args.seed + 40 + G)
                             for G in (1, 16)}
-        launches[path] = read_counts(path, expected(route, tf))
+        launches[path] = read_counts(path, path_kernels(route, tf))
         paths[path] = res
         if path == "fused":
             res["k3_rescans"] = fused_rescans(e, fs, raw, args.seed + 32)
@@ -3245,7 +3778,7 @@ def main() -> int:
     print(f"-- path {path}")
     reset_counts()
     paths[path] = measure_comm_phase(engine.db, args.seed + 60)
-    launches[path] = read_counts(path, expected("pallas", True))
+    launches[path] = read_counts(path, path_kernels("pallas", True))
     # the host-state engines at the main deployment, their own paths
     host, host_launches = host_engines_phase(raw, args.seed + 90,
                                              reset_counts, read_counts)
@@ -3281,13 +3814,22 @@ def main() -> int:
             reset_counts()
             paths[path] = dict(engine=engine_phase(e, big_raw, args.seed + 81,
                                                    preps=1, batches=3))
-            launches[path] = read_counts(path, expected(route, False))
+            launches[path] = read_counts(path, path_kernels(route, False))
             if route == "fused":
                 paths[path]["k3_rescans"] = fused_rescans(
                     e, None, big_raw, args.seed + 82)
             del e
         del big_raw, big_db
         torch.cuda.empty_cache()
+    # the multi-device tier as logical shards on the card, then the
+    # SIFT100M deployment's per-chip shard (its own peak memory)
+    multi, multi_launches = multi_device_phase(
+        raw, engine.db, args.seed + 100, reset_counts, read_counts, counters)
+    launches.update(multi_launches)
+    peak_before = torch.cuda.max_memory_allocated()
+    shard, shard_launches = sift100m_shard_phase(
+        args.seed + 110, reset_counts, read_counts, counters)
+    launches.update(shard_launches)
     # the plaintext paths: K6 and no PIR kernel
     for i, (path, run) in enumerate((("exact search", exact_search_phase),
                                      ("plaintext", plaintext_phase),
@@ -3297,7 +3839,7 @@ def main() -> int:
         reset_counts()
         paths[path] = run(args.seed + 70 + i)
         launches[path] = read_counts(path, ("l2_distance",))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = max(peak_before, torch.cuda.max_memory_allocated()) / 1e9
     print(f"peak device memory over the paths {peak_gb:.3f} GB")
 
     details = dict(card=card, k1=k1, k1_ragged=k1_ragged, k1_5m=k1_5m,
@@ -3305,8 +3847,8 @@ def main() -> int:
                    k3_k4=k34, k3_k4_hp14336=k34_wide, k3_k4_wide_s=k3_wide,
                    k4_edge=k4_edge,
                    k5=k5, k6=k6, k7=k7, paths=paths, host_engines=host,
-                   private_search=private,
-                   ptxas=ptxas_notes,
+                   private_search=private, multi_device=multi,
+                   sift100m_shard=shard, ptxas=ptxas_notes,
                    launches=launches, pir_select_ms=select_ms,
                    resident_state=resident, peak_device_gb=peak_gb,
                    seconds=time.perf_counter() - t_start)
@@ -3330,24 +3872,28 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("aes_mmo_tables", "aes_mmo.cu",
               "pacmann_tpu/ops/aes_pallas.py:129",
-              max(v["max_abs_err"] for v in (k1, k1_ragged, k1_5m)), k1, k1),
+              max(v["max_abs_err"] for v in (k1, k1_ragged, k1_5m,
+                                             shard["k1"])), k1, k1),
         entry("xor_gather", "xor_gather.cu",
               "pacmann_tpu/ops/xor_scan.py:346",
               max(v["max_abs_err"] for v in (
                   *k2.values(), *k2_wide["k=5"].values(),
-                  *k2_wide["k=8"].values(), k2_ragged, k2_5m)),
+                  *k2_wide["k=8"].values(), k2_ragged, k2_5m,
+                  shard["k2"])),
               k2["prep"], k2["prep"]),
         entry("claim_select", "protocol.cu",
               "pacmann_tpu/ops/protocol_kernels.py:119",
               max(v["k4_err"] for v in (*k34.values(), *k34_wide.values(),
                                         *k3_wide.values(),
-                                        *k4_edge.values())),
+                                        *k4_edge.values(),
+                                        *shard["k3_k4"].values())),
               dict(ms=k34_q96["k4_ms"], plain_ms=k34_q96["k4_plain_ms"]),
               k34_q96["k4_bound"]),
         entry("select_full", "protocol.cu",
               "pacmann_tpu/ops/protocol_kernels.py:287",
               max(v["k3_err"] for v in (*k34.values(), *k34_wide.values(),
-                                        *k3_wide.values())),
+                                        *k3_wide.values(),
+                                        *shard["k3_k4"].values())),
               dict(ms=k34_q96["k3_ms"], plain_ms=k34_q96["k3_plain_ms"]),
               k34_q96["k3_bound"]),
         entry("aes_mmo_points", "aes_mmo.cu",

@@ -10,13 +10,17 @@ and numpy, never jax. Same layer map as the reference:
              tiled L2 distance (kernel K6, csrc/l2_distance.cu), each
              beside its plain torch version; the numpy AES oracle.
   pir/       parameter derivation, DB layout, the device-resident batch
-             PIR engine, and state conversion from the JAX engine.
+             PIR engine, its partition- and chunk-sharded forms, and
+             state conversion from the JAX engine.
+  parallel/  the device mesh: sharded XOR scans with an XOR all-reduce,
+             the row-sharded L2 top-k, the multi-device dry run.
   private/   the PIR-backed vertex oracle, fused private search (beam
              traversal + PIR per step) and the end-to-end driver.
   graph/     plaintext beam search (batched and host), exact k-NN,
              recall and graph quality, k-means start vertices.
   io/        bvecs/fvecs/ivecs/npy/txt loaders, the report writer.
-  cli/       private search, exact search and the plaintext ANN command.
+  cli/       private search, exact search (one device or a mesh), the
+             plaintext ANN command and the cluster baseline.
   utils/     u32-as-int32 helpers, stable top-k, the nvcc/ctypes loader.
   csrc/      CUDA C++ sources for sm_90a, built on first use.
 """

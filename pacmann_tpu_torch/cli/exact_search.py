@@ -3,8 +3,11 @@ construction), the role the NGT search program plays in the
 reference (ngt-search/ngt-search.go, C15); the port of the JAX
 package's cli/exact_search.py. One device: the distances go through
 l2_distance (kernel K6 on CUDA) and the top-k stays on the device
-(graph/recall.py::knn_search). Sharding the DB rows over several devices
-(-shards > 1) is not ported yet."""
+(graph/recall.py::knn_search). -shards N shards the DB rows over a mesh
+of N shards (parallel/sharding.py::sharded_l2_topk: one K6 launch a
+shard, a local top-k, a global merge); the shards differ by at most one
+row, so no padding row exists to be ranked (the JAX CLI pads with +inf
+rows, which win its top-k as NaN distances when N does not divide n)."""
 
 from __future__ import annotations
 
@@ -16,12 +19,17 @@ import torch
 
 from pacmann_tpu_torch.graph.recall import compute_recall, knn_search
 from pacmann_tpu_torch.io.loaders import load_float32_matrix, load_int_matrix
+from pacmann_tpu_torch.parallel.sharding import (
+    make_mesh, replicate, shard_rows, sharded_l2_topk)
 from pacmann_tpu_torch.utils import cuda_lib
 
 
-def main(argv=None, device=None) -> int:
+def main(argv=None, device=None, devices=None) -> int:
     """device: where the scan runs (a Python keyword, not a flag); None
-    means CUDA, which raises where CUDA is not available."""
+    means CUDA, which raises where CUDA is not available. devices: the
+    mesh of -shards N, N devices (repeats allowed); None means N times
+    `device` where it is given, else the CUDA devices round-robin
+    (make_mesh)."""
     p = argparse.ArgumentParser(prog="pacmann-exact-search")
     p.add_argument("-n", type=int, default=100000)
     p.add_argument("-d", "--dim", type=int, default=128)
@@ -31,14 +39,17 @@ def main(argv=None, device=None) -> int:
     p.add_argument("-query", default="")
     p.add_argument("-gnd", default="")
     p.add_argument("-shards", type=int, default=1,
-                   help=">1: shard DB rows over devices (not ported yet)")
+                   help=">1: shard DB rows over a device mesh")
     p.add_argument("-seed", type=int, default=0)
     args = p.parse_args(argv)
+    mesh = None
     if args.shards > 1:
-        raise NotImplementedError(
-            "-shards > 1 (DB rows sharded over devices) is not ported yet: "
-            'ROADMAP Queue 1, "Multi-device"')
-    dev = cuda_lib.default_device(None, device)
+        if devices is None and device is not None:
+            devices = [device] * args.shards
+        mesh = make_mesh(args.shards, devices=devices)
+        dev = mesh.devices[0]
+    else:
+        dev = cuda_lib.default_device(None, device)
 
     rng = np.random.default_rng(args.seed)
     if args.input:
@@ -50,12 +61,21 @@ def main(argv=None, device=None) -> int:
     else:
         queries = rng.random((args.q, args.dim), dtype=np.float32)
 
-    v_dev = torch.as_tensor(vectors, device=dev)
-    q_dev = torch.as_tensor(queries, device=dev)
+    if mesh is None:
+        v_dev = torch.as_tensor(vectors, device=dev)
+        q_dev = torch.as_tensor(queries, device=dev)
+        where = ""
 
-    def scan():
-        ids = knn_search(v_dev, q_dev, args.k)[1]
-        return ids.cpu().numpy()
+        def scan():
+            return knn_search(v_dev, q_dev, args.k)[1].cpu().numpy()
+    else:
+        v_shards = shard_rows(mesh, torch.as_tensor(vectors))
+        q_rep = replicate(mesh, torch.as_tensor(queries))
+        where = f" over {mesh.describe()}"
+
+        def scan():
+            return sharded_l2_topk(mesh, q_rep, v_shards,
+                                   args.k)[0].cpu().numpy()
 
     scan()                          # warm: kernel build, allocator
     t0 = time.perf_counter()
@@ -63,7 +83,7 @@ def main(argv=None, device=None) -> int:
     dt = time.perf_counter() - t0
 
     print(f"Exact scan: {dt/max(args.q,1)*1000:.3f} ms/query "
-          f"({args.n * args.q / max(dt, 1e-9) / 1e9:.2f} G dist/s)")
+          f"({args.n * args.q / max(dt, 1e-9) / 1e9:.2f} G dist/s){where}")
     if args.gnd:
         gnd = load_int_matrix(args.gnd, args.q, args.k)
         print(f"Recall@{args.k}: {compute_recall(gnd, ids, args.k):.4f}")

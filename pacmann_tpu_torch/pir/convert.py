@@ -6,7 +6,9 @@ tables and slot columns, int32 tags and counters. The port holds every one
 of them as an int32 tensor with the same value bits (utils/u32.py). A
 table-free JAX state holds the partitions' AES round keys as bit-plane
 masks (P, 11, 8, 16) in place of the table; the port holds the same keys
-as bytes, "rk" (P, 11, 16) uint8.
+as bytes, "rk" (P, 11, 16) uint8. A sharded JAX engine's state reads as
+the same global arrays (np.asarray gathers them); load_state splits it by
+shard for the port's ShardedPianoEngine.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from pacmann_tpu_torch.pir.device_engine import (
     STATE_KEYS, TABLE_FREE_STATE_KEYS)
+from pacmann_tpu_torch.pir.sharded_engine import ShardedPianoEngine
 from pacmann_tpu_torch.utils.u32 import from_u32, to_u32
 
 
@@ -36,9 +39,15 @@ def rk_from_masks(masks: np.ndarray) -> np.ndarray:
     return np.bitwise_or.reduce(bits << shifts, axis=2)
 
 
-def state_from_numpy(state: dict[str, np.ndarray], device) -> dict:
+def state_from_numpy(state: dict[str, np.ndarray], device,
+                     partitions: tuple[int, int] | None = None) -> dict:
     """A JAX engine's state, with its table or (table-free) its masks ->
-    the port's state on `device` (STATE_KEYS or TABLE_FREE_STATE_KEYS)."""
+    the port's state on `device` (STATE_KEYS or TABLE_FREE_STATE_KEYS).
+    partitions = (lo, hi) converts only those partitions (axis 0 of every
+    leaf)."""
+    if partitions is not None:
+        state = {k: np.asarray(v)[partitions[0]:partitions[1]]
+                 for k, v in state.items()}
     table_free = "masks" in state
     keys = TABLE_FREE_STATE_KEYS if table_free else STATE_KEYS
     want = [k for k in keys if k != "rk"] + (["masks"] if table_free else [])
@@ -49,6 +58,19 @@ def state_from_numpy(state: dict[str, np.ndarray], device) -> dict:
     if table_free:
         out["rk"] = torch.from_numpy(rk_from_masks(state["masks"])).to(device)
     return out
+
+
+def load_state(engine, state: dict[str, np.ndarray]) -> None:
+    """Install a JAX engine's state (global numpy arrays) in a port engine:
+    a ShardedPianoEngine takes each shard's partitions on that shard's
+    device, and no device receives more than its shard; any other engine
+    takes the whole state on its device."""
+    if isinstance(engine, ShardedPianoEngine):
+        engine.shard_states = [
+            state_from_numpy(state, dev, rng) for rng, dev in
+            zip(engine.partition_ranges, engine.mesh.devices)]
+    else:
+        engine.state = state_from_numpy(state, engine.device)
 
 
 def db_from_numpy(db: np.ndarray, device) -> torch.Tensor:

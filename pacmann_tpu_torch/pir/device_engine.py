@@ -26,6 +26,11 @@ The whole client+server state lives on one device:
        reading them from the table;
     C. the hint refresh (pir.go:460-468) as row scatters.
 
+The DB and the state are reached only through a few methods (_pack_db,
+_prep_state, _dummy_state, _round, consumed, prepared), which the sharded
+engines override (pir/sharded_engine.py); query() and the fused search
+run over any of them.
+
 Protocol semantics, tie orders and the numpy draw order are the JAX
 engine's, so the same seed gives the same state bit for bit (the tests
 hold the two engines against each other). Differences of form only:
@@ -51,7 +56,7 @@ from pacmann_tpu_torch.pir.params import (
     derive_piano_params,
 )
 from pacmann_tpu_torch.utils import cuda_lib
-from pacmann_tpu_torch.utils.u32 import first_true, from_u32, to_u32
+from pacmann_tpu_torch.utils.u32 import first_true, from_u32, to_u32, u32_view
 
 # Phase-C refresh form: row scatters up to this many update rows per
 # round, the dense rewrite above it (the JAX engine's threshold; both
@@ -104,6 +109,19 @@ def _build_skip(P: int, T: int, Hp: int, R: int, S: int, device):
     s = torch.arange(S, device=device)[None, :]
     skip = (t >= Hp) & (s == torch.div(t - Hp, R, rounding_mode="floor"))
     return skip[None].expand(P, T, S)
+
+
+def _carry(st: dict) -> tuple:
+    """The state a round updates in place: (tag, prog, primary parities,
+    slot columns, hist, finished)."""
+    return (st["tag"], st["prog"], st["primary_parity"], st["slot_col"],
+            st["hist"], st["finished"])
+
+
+def _consumed(st: dict) -> int:
+    """Max over the state's partitions of the served count and of the
+    backup-hint burn."""
+    return max(int(st["finished"].max()), int(st["hist"].sum(dim=1).max()))
 
 
 def resolve_route(route: str | None, device) -> str:
@@ -313,20 +331,84 @@ def _pir_batch(db, table, repl_idx, repl_val, bpar, carry, idx_q, rnd_q,
                        Hp=Hp, S=S, refresh=refresh)
 
 
+def pack_partitions(raw: torch.Tensor, lo_p: int, hi_p: int, *, S: int,
+                    C: int, k: int, psize: int, device=None,
+                    chunks: tuple[int, int] | None = None) -> torch.Tensor:
+    """Partitions [lo_p, hi_p) of the (n, entry_u32) int32 rows -> their
+    (S, hi_p - lo_p, C*k, 128) int32 set-major DB on `device` (None: raw's
+    device): partition p holds rows [p*psize, (p+1)*psize), zero padded to
+    its S*C entries of k*128 words. chunks = (s0, s1) packs only chunks
+    [s0, s1) of each partition, an (s1 - s0, ...) DB. Each partition's rows
+    are written straight into their chunk slots, so the DB is the only
+    buffer of its size and only one partition's rows move to `device` at a
+    time."""
+    n, entry_u32 = raw.shape
+    dev = raw.device if device is None else torch.device(device)
+    s0, s1 = (0, S) if chunks is None else chunks
+    x = torch.zeros((s1 - s0, hi_p - lo_p, C * k, 128), dtype=torch.int32,
+                    device=dev)
+    for j, p in enumerate(range(lo_p, hi_p)):
+        lo = p * psize + s0 * C
+        hi = min(p * psize + min(s1 * C, psize), n)
+        if hi <= lo:
+            continue
+        rows = raw[lo:hi].to(dev)
+        slots = x[:, j].view(s1 - s0, C, k * 128)
+        full, rem = divmod(hi - lo, C)
+        if full:
+            slots[:full, :, :entry_u32] = rows[:full * C].view(
+                full, C, entry_u32)
+        if rem:
+            slots[full, :rem, :entry_u32] = rows[full * C:]
+    return x
+
+
 def pack_db(raw: torch.Tensor, *, S: int, P: int, C: int, k: int,
             psize: int) -> torch.Tensor:
-    """(n, entry_u32) int32 -> (S, P, C*k, 128) int32 on raw's device: zero
-    pad rows to P*psize and columns to k*128, pad each partition to its
-    S*C-row slot, then partition-major -> set-major."""
-    n, entry_u32 = raw.shape
-    x = torch.zeros((P * S * C, k * 128), dtype=torch.int32,
-                    device=raw.device)
-    xv = x.view(P, S * C, k * 128)
-    for p in range(P):
-        lo, hi = p * psize, min((p + 1) * psize, n)
-        if hi > lo:
-            xv[p, : hi - lo, :entry_u32] = raw[lo:hi]
-    return xv.view(P, S, C * k, 128).transpose(0, 1).contiguous()
+    """(n, entry_u32) int32 -> the whole (S, P, C*k, 128) int32 DB on raw's
+    device (pack_partitions of all P partitions)."""
+    return pack_partitions(raw, 0, P, S=S, C=C, k=k, psize=psize)
+
+
+def prep_partitions(db4, rk, repl_off, *, Hp: int, R: int,
+                    chunk_mask: int, k: int):
+    """The offline pass over the partitions a DB holds: db4 (S, P, C*k, 128)
+    int32, rk (P, 11, 16) uint8 round keys, repl_off (P, S, R) int32 local
+    offsets, all on one device. One K1 launch (the PRF tables) and one K2
+    launch (every parity) on CUDA. Returns (table (P, T, S), parities
+    (P, T, k*128), repl_val (P, S, R, k*128), slot_col (P, S, Hp))."""
+    S, P = db4.shape[:2]
+    T = Hp + S * R
+    table = aes.prf_tables(rk, T, S, chunk_mask)                # (P, T, S)
+    skip = _build_skip(P, T, Hp, R, S, db4.device)
+    parities = xor_scan.xor_hintgen(db4, table, skip, k)
+    repl_val = _gather_repl(db4, repl_off, k)
+    slot_col = table[:, :Hp, :].transpose(1, 2).contiguous()
+    return table, parities, repl_val, slot_col
+
+
+def new_state(offsets, parities, repl_idx, repl_val, slot_col, *, Hp: int,
+              table_free: bool) -> dict:
+    """The state of the partitions `parities` holds (P of them), on its
+    device. offsets: the (P, T, S) table, or a table-free engine's round
+    keys (P, 11, 16) uint8 (then the state has TABLE_FREE_STATE_KEYS)."""
+    P = parities.shape[0]
+    S = slot_col.shape[1]
+    dev = parities.device
+    return dict(
+        {"rk" if table_free else "table": offsets},
+        # cached PRF column per primary slot (initial tags are 0..Hp-1)
+        slot_col=slot_col,                                      # (P, S, Hp)
+        tag=torch.arange(Hp, dtype=torch.int32, device=dev).repeat(P, 1),
+        prog=torch.full((P, Hp), DEFAULT_PROGRAM_POINT, dtype=torch.int32,
+                        device=dev),
+        primary_parity=parities[:, :Hp, :],
+        backup_parity=parities[:, Hp:, :],
+        hist=torch.zeros((P, S), dtype=torch.int32, device=dev),
+        finished=torch.zeros((P,), dtype=torch.int32, device=dev),
+        repl_idx=repl_idx,
+        repl_val=repl_val,
+    )
 
 
 class DevicePianoEngine:
@@ -380,11 +462,10 @@ class DevicePianoEngine:
         else:
             self.device = cuda_lib.default_device(raw, device)
             if isinstance(raw, np.ndarray):
-                raw = from_u32(raw.reshape(db_size, entry_bytes // 4),
-                               self.device)
-            self.db = pack_db(raw.to(self.device), S=p.set_size, P=P,
-                              C=p.chunk_size, k=self.k, psize=psize)
-        self.state = None
+                # each partition's rows move to the device as it is packed
+                raw = u32_view(raw.reshape(db_size, entry_bytes // 4))
+            self.db = self._pack_db(raw)
+        self._drop_state()
         self.table_free = table_free
         self.kernel_route = kernel_route
         self.measure_comm = measure_comm
@@ -403,6 +484,106 @@ class DevicePianoEngine:
         self.preprocessing_time = 0.0
         self.comm_cost_per_batch_offline = 0
 
+    # -- the hooks a sharded engine overrides (pir/sharded_engine.py): every
+    # read or write of the DB or the state outside them goes through them
+
+    def _pack_partitions(self, raw: torch.Tensor, lo_p: int, hi_p: int,
+                         device=None, chunks=None) -> torch.Tensor:
+        """Partitions [lo_p, hi_p) of the raw int32 rows -> their
+        (S, hi_p - lo_p, C*k, 128) DB on `device` (None: the engine's);
+        chunks as pack_partitions takes it."""
+        return pack_partitions(
+            raw, lo_p, hi_p, S=self.params.set_size, C=self.params.chunk_size,
+            k=self.k, psize=self.config.partition_size,
+            device=self.device if device is None else device, chunks=chunks)
+
+    def _pack_db(self, raw: torch.Tensor):
+        return self._pack_partitions(raw, 0, self.config.partition_num)
+
+    def _drop_state(self):
+        self.state = None
+
+    @property
+    def prepared(self) -> bool:
+        """Whether hint state is installed (after a prep or a dummy)."""
+        return self.state is not None
+
+    def _prep_on(self, db4, rk: torch.Tensor, repl_off: np.ndarray,
+                 repl_idx: np.ndarray, device) -> dict:
+        """The offline pass over the partitions db4 holds, on `device`: rk
+        (P, 11, 16) uint8 round keys, repl_off / repl_idx (P, S, R) u32.
+        Returns their state."""
+        p = self.params
+        rk = rk.to(device)
+        table, parities, repl_val, slot_col = prep_partitions(
+            db4, rk, from_u32(repl_off, device), Hp=p.primary_hint_num,
+            R=p.max_query_per_chunk, chunk_mask=p.chunk_mask, k=self.k)
+        # a table-free engine keeps the round keys instead, the reference's
+        # client storage model: the online path re-derives the offsets
+        offsets = rk if self.table_free else table
+        del table
+        return new_state(offsets, parities, from_u32(repl_idx, device),
+                         repl_val, slot_col, Hp=p.primary_hint_num,
+                         table_free=self.table_free)
+
+    def _prep_state(self, rk: torch.Tensor, repl_off: np.ndarray,
+                    repl_idx: np.ndarray):
+        """Run the offline pass and install its state (see _prep_on)."""
+        self.state = self._prep_on(self.db, rk, repl_off, repl_idx,
+                                   self.device)
+
+    def _zero_state_on(self, P: int, rk, device) -> dict:
+        """dummy_preprocessing's state of P partitions on `device`: every
+        hint zero; rk a table-free engine's round keys (None: a zero
+        table)."""
+        p = self.params
+        S, R, Hp = p.set_size, p.max_query_per_chunk, p.primary_hint_num
+        T = Hp + S * R
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=device)
+
+        return new_state(zeros(P, T, S) if rk is None else rk,
+                         zeros(P, T, self.Ep), zeros(P, S, R),
+                         zeros(P, S, R, self.Ep), zeros(P, S, Hp), Hp=Hp,
+                         table_free=rk is not None)
+
+    def _dummy_state(self, rk):
+        """Install dummy_preprocessing's zero state (rk: a table-free
+        engine's round keys, else None)."""
+        self.state = self._zero_state_on(
+            self.config.partition_num,
+            None if rk is None else rk.to(self.device), self.device)
+
+    def _protocol_kw(self) -> dict:
+        p = self.params
+        return dict(C=p.chunk_size, R=p.max_query_per_chunk,
+                    Hp=p.primary_hint_num, S=p.set_size)
+
+    def _round(self, idx_q: torch.Tensor, rnd_q: torch.Tensor,
+               refresh=None):
+        """One device round: idx_q (Q, P) int32 local indices (-1 =
+        dummy), rnd_q (Q, P, S) int32 dummy offsets, both on the engine's
+        device. Updates the state in place; returns (entries (Q, P, k*128)
+        int32, ok (Q, P) bool) on the engine's device."""
+        return self._round_on(self.db, self.state, idx_q, rnd_q, refresh)
+
+    def _round_on(self, db4, st: dict, idx_q, rnd_q, refresh=None):
+        """_pir_batch over the partitions db4 and st hold, on their device:
+        (entries, ok) of those partitions."""
+        _, entries, oks = _pir_batch(
+            db4, st.get("table"), st["repl_idx"], st["repl_val"],
+            st["backup_parity"], _carry(st), idx_q, rnd_q, k=self.k,
+            max_q=self.params.max_query_num, dpp=DEFAULT_PROGRAM_POINT,
+            refresh=refresh, route=self.kernel_route, rk=st.get("rk"),
+            **self._protocol_kw())
+        return entries, oks
+
+    def consumed(self) -> int:
+        """Device-measured budget use since prep: max over partitions of
+        the served count and of the backup-hint burn."""
+        return _consumed(self.state)
+
     # -- offline -------------------------------------------------------------
 
     def _record_stats(self, prep_time: float):
@@ -411,51 +592,13 @@ class DevicePianoEngine:
         db_bytes = float(self.config.db_size) * self.config.entry_bytes
         self.comm_cost_per_batch_offline = int(db_bytes / self.support_batch_num)
 
-    def _prep_device(self, rk: torch.Tensor, repl_off: np.ndarray):
-        """The offline pass on the engine's device: rk (P, 11, 16) uint8
-        round keys of the partitions' AES keys, repl_off (P, S, R) u32.
-        Returns (table, parities, repl_val, slot_col)."""
-        p = self.params
-        P = self.config.partition_num
-        S, R, Hp = p.set_size, p.max_query_per_chunk, p.primary_hint_num
-        T = Hp + S * R
-        table = aes.prf_tables(rk, T, S, p.chunk_mask)          # (P, T, S)
-        skip = _build_skip(P, T, Hp, R, S, self.device)
-        parities = xor_scan.xor_hintgen(self.db, table, skip, self.k)
-        repl_val = _gather_repl(self.db, from_u32(repl_off, self.device),
-                                self.k)
-        slot_col = table[:, :Hp, :].transpose(1, 2).contiguous()
-        return table, parities, repl_val, slot_col
-
-    def _new_state(self, offsets, parities, repl_idx, repl_val, slot_col):
-        """offsets: the (P, T, S) table, or a table-free engine's round
-        keys (P, 11, 16) uint8 (then the state has TABLE_FREE_STATE_KEYS)."""
-        p = self.params
-        P, Hp = self.config.partition_num, p.primary_hint_num
-        dev = self.device
-        return dict(
-            {"rk" if self.table_free else "table": offsets},
-            # cached PRF column per primary slot (initial tags are 0..Hp-1)
-            slot_col=slot_col,                                  # (P, S, Hp)
-            tag=torch.arange(Hp, dtype=torch.int32, device=dev)
-            .repeat(P, 1),
-            prog=torch.full((P, Hp), DEFAULT_PROGRAM_POINT,
-                            dtype=torch.int32, device=dev),
-            primary_parity=parities[:, :Hp, :],
-            backup_parity=parities[:, Hp:, :],
-            hist=torch.zeros((P, p.set_size), dtype=torch.int32, device=dev),
-            finished=torch.zeros((P,), dtype=torch.int32, device=dev),
-            repl_idx=repl_idx,
-            repl_val=repl_val,
-        )
-
     def preprocessing(self, rng: np.random.Generator | None = None):
         t0 = time.perf_counter()
         self.finished_batch_num = 0
         self.queries_made_in_partition = 0
         self.cache = {}
         # drop the spent window's buffers before building the new one
-        self.state = None
+        self._drop_state()
         if rng is not None:
             self._rng = rng
         p = self.params
@@ -470,16 +613,7 @@ class DevicePianoEngine:
         repl_idx = repl_off + (
             np.arange(S, dtype=np.uint32) * C)[None, :, None]
         keys16 = [self._rng.bytes(16) for _ in range(P)]
-        rk = aes.round_keys(keys16).to(self.device)
-
-        table, parities, repl_val, slot_col = self._prep_device(rk, repl_off)
-        # a table-free engine keeps the round keys instead, the reference's
-        # client storage model: the online path re-derives the offsets
-        offsets = rk if self.table_free else table
-        del table
-        self.state = self._new_state(offsets, parities,
-                                     from_u32(repl_idx, self.device),
-                                     repl_val, slot_col)
+        self._prep_state(aes.round_keys(keys16), repl_off, repl_idx)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._record_stats(time.perf_counter() - t0)
@@ -490,52 +624,23 @@ class DevicePianoEngine:
             self._rng = rng
         self.finished_batch_num = 0
         self.queries_made_in_partition = 0
-        p = self.params
         P = self.config.partition_num
-        S, R, Hp = p.set_size, p.max_query_per_chunk, p.primary_hint_num
-        T = Hp + S * R
-        dev = self.device
-
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.int32, device=dev)
-
         # a table-free engine draws its P keys after the zero state, as
         # the JAX engine does
-        offsets = (aes.round_keys([self._rng.bytes(16) for _ in range(P)])
-                   .to(dev) if self.table_free else zeros(P, T, S))
-        self.state = self._new_state(
-            offsets, zeros(P, T, self.Ep), zeros(P, S, R),
-            zeros(P, S, R, self.Ep), zeros(P, S, Hp))
+        self._dummy_state(aes.round_keys([self._rng.bytes(16)
+                                          for _ in range(P)])
+                          if self.table_free else None)
         self.cache = {}
         self._record_stats(0.0)
 
     # -- online --------------------------------------------------------------
 
-    def _round_inputs(self, idx_q: np.ndarray, rand_offs: np.ndarray):
-        """A round's carry, its inputs on the device, and the protocol's
-        keyword arguments."""
-        p = self.params
-        st = self.state
-        carry = (st["tag"], st["prog"], st["primary_parity"],
-                 st["slot_col"], st["hist"], st["finished"])
-        idx_t = torch.from_numpy(np.asarray(idx_q, np.int32)).to(self.device)
-        kw = dict(C=p.chunk_size, R=p.max_query_per_chunk,
-                  Hp=p.primary_hint_num, S=p.set_size)
-        return carry, idx_t, from_u32(rand_offs, self.device), kw
-
     def _online(self, idx_q: np.ndarray, rand_offs: np.ndarray,
                 refresh=None):
-        """One round: idx_q (Q, P) i32 local indices (-1 = dummy),
-        rand_offs (Q, P, S) u32 dummy offsets. Updates the state in place;
-        returns (entries (Q, P, k*128) int32, ok (Q, P) bool) tensors."""
-        st = self.state
-        carry, idx_t, rnd_t, kw = self._round_inputs(idx_q, rand_offs)
-        _, entries, oks = _pir_batch(
-            self.db, st.get("table"), st["repl_idx"], st["repl_val"],
-            st["backup_parity"], carry, idx_t, rnd_t, k=self.k,
-            max_q=self.params.max_query_num, dpp=DEFAULT_PROGRAM_POINT,
-            refresh=refresh, route=self.kernel_route, rk=st.get("rk"), **kw)
-        return entries, oks
+        """One round (see _round) from numpy inputs: idx_q (Q, P) i32,
+        rand_offs (Q, P, S) u32."""
+        idx_t = torch.from_numpy(np.asarray(idx_q, np.int32)).to(self.device)
+        return self._round(idx_t, from_u32(rand_offs, self.device), refresh)
 
     def _online_measured(self, idx_q: np.ndarray, rand_offs: np.ndarray,
                          refresh=None):
@@ -544,7 +649,10 @@ class DevicePianoEngine:
         the host as numpy buffers and are byte-counted (pir.go:443-448's
         messages), as in the JAX engine's _online_measured."""
         st = self.state
-        carry, idx_t, rnd_t, kw = self._round_inputs(idx_q, rand_offs)
+        carry = _carry(st)
+        idx_t = torch.from_numpy(np.asarray(idx_q, np.int32)).to(self.device)
+        rnd_t = from_u32(rand_offs, self.device)
+        kw = self._protocol_kw()
         sel, qs = _pir_select(
             st.get("table"), st["repl_idx"], carry, idx_t, rnd_t,
             max_q=self.params.max_query_num, dpp=DEFAULT_PROGRAM_POINT,
@@ -656,13 +764,6 @@ class DevicePianoEngine:
         else:
             self.finished_batch_num += len(ids) // c.batch_size
         return out
-
-    def consumed(self) -> int:
-        """Device-measured budget use since prep: max over partitions of
-        the served count and of the backup-hint burn."""
-        fin = int(self.state["finished"].max())
-        burn = int(self.state["hist"].sum(dim=1).max())
-        return max(fin, burn)
 
     # -- accounting (batch-pir.go:250-276) -----------------------------------
 

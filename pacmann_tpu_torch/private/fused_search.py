@@ -10,17 +10,21 @@ Each beam step, over a group of concurrent queries:
   3. FCFS routing: surviving ids are ranked within their batch-PIR
      partitions and the first `quota` per partition become sub-queries,
      the rest are dropped (batch-pir.go:194-216);
-  4. PIR: _pir_batch serves quota sub-queries per partition on the
+  4. PIR: the engine's device round (`_round`, _pir_batch on each shard
+     of a sharded engine) serves quota sub-queries per partition on the
      engine's protocol route (kernel K3 or K4 selects on CUDA when the
      route says so; kernel K2 answers; a table-free engine's offsets come
      from kernel K5);
   5. decode (vector || neighbors) and update the visited table
      (search.go:187-207).
 
-The JAX package runs a segment of steps as one compiled program; here one
-Python loop over steps drives torch ops on the engine's device. Segments
-are sized to the hint budget left, with a refresh between them
-(pir.go:525-533 lifted to the group level), exactly as there.
+The JAX package runs a segment of steps as one compiled program, and above
+4 GiB of DB (or with split_route) as a chain of programs a step; here one
+Python loop over steps drives torch ops on the engine's device, one form
+at every size, and the engine's round hook reaches its DB and state (so
+the search runs over the sharded engines too). Segments are sized to the
+hint budget left, with a refresh between them (pir.go:525-533 lifted to
+the group level), exactly as there.
 
 The JAX package draws each step's random padding ids and dummy offsets
 from its PRNG, which torch cannot reproduce: search() takes them as
@@ -36,8 +40,7 @@ import torch
 
 from pacmann_tpu_torch.graph.beam import (finish_topk, first_occurrence,
                                           pop_frontier)
-from pacmann_tpu_torch.pir.device_engine import DevicePianoEngine, _pir_batch
-from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT
+from pacmann_tpu_torch.pir.device_engine import DevicePianoEngine
 from pacmann_tpu_torch.utils.u32 import as_f32, first_true, smallest_k
 
 INF = float("inf")
@@ -203,7 +206,7 @@ class FusedPrivateSearch:
         """Worst-case steps the remaining budget can serve (margin matches
         the refresh condition in search())."""
         e = self.engine
-        if e.state is None:
+        if not e.prepared:
             return 0
         return max(0, (e.params.max_query_num - 11
                        - e.queries_made_in_partition)) // max(quota, 1)
@@ -218,7 +221,7 @@ class FusedPrivateSearch:
         quota = n_queries * parallel * self.m // e.config.partition_num
         min_steps = min(min_steps, max_step,
                         (e.params.max_query_num - 11) // max(quota, 1))
-        if e.state is None or self._steps_fit(quota) < min_steps:
+        if not e.prepared or self._steps_fit(quota) < min_steps:
             self._refresh()
 
     def segment_plan(self, max_step: int, quota: int,
@@ -281,10 +284,6 @@ class FusedPrivateSearch:
                  else torch.from_numpy(np.asarray(a).astype(np.int32)))
                 .to(device=dev, dtype=torch.int32) for a in step_randoms)
 
-        pir_kw = dict(C=p.chunk_size, R=p.max_query_per_chunk,
-                      Hp=p.primary_hint_num, S=p.set_size, k=e.k,
-                      max_q=p.max_query_num, dpp=DEFAULT_PROGRAM_POINT,
-                      route=e.kernel_route)
         stats = torch.zeros(3, dtype=torch.int64, device=dev)
         self.last_maintenance_s = 0.0
         base = 0
@@ -293,26 +292,18 @@ class FusedPrivateSearch:
             # refresh when the worst-case budget cannot cover this segment
             # (private-search.go:224-230's proactive margin); the estimate
             # is corrected to the device-measured truth after the search
-            if (e.state is None or e.queries_made_in_partition + need + 10
+            if (not e.prepared or e.queries_made_in_partition + need + 10
                     >= p.max_query_num):
                 if dev.type == "cuda":
                     # finish the queued steps before the refresh timer starts
                     torch.cuda.synchronize(dev)
                 self.last_maintenance_s += self._refresh()
-            st = e.state
-            carry = (st["tag"], st["prog"], st["primary_parity"],
-                     st["slot_col"], st["hist"], st["finished"])
             for g in range(base, base + seg):
                 (fid, known, is_first, keep, slot, fo_idx, has_first,
                  idx_q) = _route_core(
                     *beam, rand_all[g], psize=e.config.partition_size,
                     m=self.m, P=P, parallel=parallel, quota=quota, n=self.n)
-                # a table-free engine's state holds round keys, not the
-                # table: the PRF (kernel K5) stands in for the table reads
-                _, entries, oks = _pir_batch(
-                    e.db, st.get("table"), st["repl_idx"], st["repl_val"],
-                    st["backup_parity"], carry, idx_q, rnd_all[g],
-                    rk=st.get("rk"), **pir_kw)
+                entries, oks = e._round(idx_q, rnd_all[g])
                 _update_core(
                     beam, stats, queries_d, entries, oks,
                     (fid, known, is_first, keep, slot, fo_idx, has_first),

@@ -24,6 +24,18 @@ def from_u32(a, device=None) -> torch.Tensor:
     return torch.tensor(a.view(np.int32), device=device)
 
 
+def u32_view(a) -> torch.Tensor:
+    """u32 (or any 4-byte int) numpy array -> int32 CPU tensor, same bits,
+    sharing the array's memory (a copy where the array is read-only): for
+    a large input read once, such as raw DB rows about to be packed."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.itemsize != 4 or a.dtype.kind not in "iu":
+        raise TypeError(f"expected a 4-byte integer array, got {a.dtype}")
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a.view(np.int32))
+
+
 def to_u32(t: torch.Tensor) -> np.ndarray:
     """int32 tensor -> u32 numpy array, same bits, never sharing memory
     with the tensor (which may be state that is updated in place)."""

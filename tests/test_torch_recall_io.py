@@ -168,14 +168,14 @@ def test_exact_search_main_matches_jax(capsys):
 
 
 def test_unported_paths_raise(mini, capsys, tmp_path):
-    """-shards > 1 names the ROADMAP item that ports it by its title;
-    nothing runs on one device. The three calls that raised until the graph
-    build was ported now run: ann without a graph file and with a missing
+    """The calls that raised until their modules were ported now run:
+    -shards > 1 (until the multi-device tier; it runs over a mesh of that
+    many shards of `device`), ann without a graph file and with a missing
     one (built, then saved there), and the gate's search_fn hook."""
     base, graph, _ = mini
-    with pytest.raises(NotImplementedError, match='Queue 1, "Multi-device"'):
-        exact_search.main(["-n", "64", "-q", "2", "-shards", "2"],
-                          device="cpu")
+    assert exact_search.main(["-n", "64", "-q", "2", "-shards", "2"],
+                             device="cpu") == 0
+    assert "over 2 shards on 1 device(s)" in capsys.readouterr().out
     assert ann.main(["-n", "64", "-q", "2", "-m", "4"], device="cpu") == 0
     assert "Graph build time: " in capsys.readouterr().out
     path = tmp_path / "built.npy"
