@@ -162,7 +162,21 @@ queries). Phases, in order:
      at full width on a random graph (ms/query, recall@10 against
      brute_force_knn), and recall on the exact 32-NN graph of 131,072
      manifold vectors built by brute_force_knn, at least 0.2 above a
-     random graph's;
+     random graph's; then the scale phase (scale_phase), each script a
+     path of its own, through its main() as `python -m` runs it:
+     scripts.e2e_scale's canonical 1M demo (continuum data of 12 latent
+     dimensions made on the card, rounds 9, keep 16, corridor 16:2:3, k
+     10, step 20, parallel 3, 100 queries: build s, plaintext and private
+     recall@10, private within 0.03 of plaintext, prep s, private
+     ms/query, peak GiB; K1, K2 and K6, and no native_lib call),
+     scripts.baselines_scale at 1M on the host-synth continuum data
+     (exact recall 1.0, the cluster's recall, k-means s, ms/query; K6
+     only), scripts.plan_100m (the SIFT100M per-card budget fits the
+     card's memory, the mini 8-shard run over the card repeated 8 times
+     at least 30/32 exact; K1 and K2), then native_lib against the plain
+     torch versions on the card's host, bit-equal, at the 1M prep's
+     tables (16, 12,512, 124) and K7c's ragged scan (9,001, 301, 1,000),
+     host times beside the host CPU's model;
   5. every PIR path launched K1 and K2, route "pallas" K4 and the table
      engine's "fused" K3, every table-free path K5, and no path another
      route's kernel nor K6; every plaintext path K6 and no PIR kernel; no
@@ -3577,6 +3591,161 @@ def sift100m_shard_phase(seed: int, reset, read_counts,
     return out, launches
 
 
+# the scale phase: e2e_scale's canonical 1M demo on the continuum data of
+# SCALE_LATENT latent dimensions synthesized on the card, with the recipe
+# of reports/e2e_1000000_continuum_l12dev_k16c16x2x3_report.json; the
+# baselines on the host-synth continuum data; plan_100m over the card
+# repeated 8 times. Its reports and logs go under chiprun_out/.
+SCALE_N, SCALE_LATENT = 1_000_000, 12
+SCALE_E2E_ARGS = ("--n", str(SCALE_N), "--rounds", "9", "--queries", "100",
+                  "--continuum", "--device-synth", "--latent",
+                  str(SCALE_LATENT), "--keep", "16", "--corridor", "16:2:3",
+                  "--k", "10", "--step", "20", "--parallel", "3",
+                  "--rebuild")
+SCALE_BASE_ARGS = ("--n", str(SCALE_N), "--latent", str(SCALE_LATENT),
+                   "--continuum", "--queries", "100", "--k", "10")
+SCALE_PRIVATE_GAP = 0.03       # private recall within this of plaintext
+# native_lib against the plain versions on the card's host: the 1M prep's
+# tables (P, T, S), and K7c's ragged flat scan (B, S, C) at k = 2
+NATIVE_TABLE = (16, 12_512, 124)
+NATIVE_SCAN = (9_001, 301, 1_000)
+
+
+def host_cpu() -> str:
+    from pacmann_tpu_torch.scripts import cpu_model
+
+    return f"{cpu_model()}, {os.cpu_count()} logical CPUs"
+
+
+def native_phase(seed: int) -> dict:
+    """native_lib against the plain torch versions on the card's host, on
+    CPU tensors: the 1M prep's PRF tables (aes.prf_tables_native against
+    aes.prf_tables_plain) and K7c's ragged scan (xor_scan.xor_scan_native
+    against attic.xor_scan_pallas_plain), bit-equal; each timed once on
+    the host clock beside the host CPU's model."""
+    import torch
+
+    from pacmann_tpu_torch import native_lib
+    from pacmann_tpu_torch.ops import aes, attic, xor_scan
+
+    check(native_lib.available(), "native_lib did not build or load on "
+          "the card's host")
+    rng = np.random.default_rng(seed)
+    P, T, S = NATIVE_TABLE
+    mask = 511
+    rk = aes.round_keys([rng.bytes(16) for _ in range(P)])
+    t0 = time.perf_counter()
+    native = aes.prf_tables_native(rk, T, S, mask)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = aes.prf_tables_plain(rk, T, S, mask)
+    plain_s = time.perf_counter() - t0
+    err = max_abs_err(native, plain)
+    check(err == 0, f"native PRF tables differ from the plain version "
+          f"({err})")
+    res = {"cpu": host_cpu(), "tables": dict(
+        shape=NATIVE_TABLE, max_abs_err=err, native_ms=native_s * 1e3,
+        plain_ms=plain_s * 1e3)}
+    B, S, C = NATIVE_SCAN
+    k = 2
+    db = torch.from_numpy(rng.integers(0, 2**32, size=(S, C * k, 128),
+                                       dtype=np.uint32).view(np.int32))
+    off = torch.from_numpy(rng.integers(0, C, size=(B, S)).astype(np.int32))
+    skip = torch.from_numpy(rng.random((B, S)) < 0.25)
+    t0 = time.perf_counter()
+    native = xor_scan.xor_scan_native(db, off, skip, k)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = attic.xor_scan_pallas_plain(db, off, skip, k)
+    plain_s = time.perf_counter() - t0
+    err = max_abs_err(native, plain)
+    check(err == 0, f"native XOR scan differs from the plain version "
+          f"({err})")
+    res["scan"] = dict(shape=NATIVE_SCAN, k=k, max_abs_err=err,
+                       native_ms=native_s * 1e3, plain_ms=plain_s * 1e3)
+    for name in ("tables", "scan"):
+        r = res[name]
+        print(f"native_lib {name} {r['shape']}: bit-equal to the plain "
+              f"version; host {r['native_ms']:.1f} ms (native) / "
+              f"{r['plain_ms']:.1f} ms (plain) on {res['cpu']}")
+    return res
+
+
+def scale_phase(seed: int, reset, read_counts) -> tuple[dict, dict]:
+    """The port's scale scripts on the card, each a counted path (its own
+    launches from zero): e2e_scale at SCALE_N (build s, plaintext and
+    private recall, the latter within SCALE_PRIVATE_GAP, prep s, private
+    ms/query, peak GiB; no native_lib call on this CUDA path),
+    baselines_scale (exact recall 1.0, the cluster's recall, k-means s,
+    ms/query each), plan_100m (the SIFT100M plan fits the card, the mini
+    8-shard run at least 30/32 exact); then native_phase. Each script's
+    own output goes to chiprun_out/scale_<name>.log, its reports to
+    chiprun_out/reports/torch/."""
+    from pacmann_tpu_torch import native_lib
+    from pacmann_tpu_torch.scripts import baselines_scale, e2e_scale, plan_100m
+
+    out = Path("chiprun_out")
+    reports = out / "reports" / "torch"
+    reports.mkdir(parents=True, exist_ok=True)
+    launches, res = {}, {}
+
+    def run(label, script, argv, own):
+        print(f"-- path {label}")
+        native_lib.reset_calls()
+        reset()
+        t0 = time.perf_counter()
+        with open(out / f"scale_{script.__name__.rsplit('.', 1)[1]}.log",
+                  "w") as log, contextlib.redirect_stdout(log):
+            got = script.main([*argv, "--out", str(reports)])
+        wall = time.perf_counter() - t0
+        launches[label] = read_counts(label, own)
+        used = {fn.__name__: fn.calls for fn in native_lib.ENTRY_POINTS
+                if fn.calls}
+        check(not used, f"path {label} called native_lib on the card: "
+              f"{used}")
+        return got, wall
+
+    rep, wall = run("e2e 1M", e2e_scale, SCALE_E2E_ARGS,
+                    ("aes_mmo_tables", "xor_gather", "l2_distance"))
+    print(f"e2e_scale n={rep['n']} continuum l{rep['latent']} dev, rounds "
+          f"{rep['rounds']}, corridor {rep['corridor']} ({rep['gpu']}): "
+          f"build {rep['build_s']} s, "
+          f"plaintext recall@10 {rep['plaintext_recall']}, private "
+          f"{rep['private_recall']}, prep {rep['prep_s']} s, private "
+          f"{rep['private_ms_per_query']} ms/query, peak "
+          f"{rep['peak_gib']} GiB (build {rep['peak_build_gib']} GiB); "
+          f"{wall:.1f} s")
+    check(rep["private_recall"] >= rep["plaintext_recall"]
+          - SCALE_PRIVATE_GAP, f"e2e private recall {rep['private_recall']} "
+          f"more than {SCALE_PRIVATE_GAP} below plaintext "
+          f"{rep['plaintext_recall']}")
+    res["e2e"] = dict(rep, wall_s=wall)
+
+    base, wall = run("baselines 1M", baselines_scale, SCALE_BASE_ARGS,
+                     ("l2_distance",))
+    print(f"baselines_scale n={SCALE_N} continuum l{SCALE_LATENT} "
+          f"({base['device']}): exact recall@10 {base['exact_recall']:.4f}, "
+          f"{base['exact_ms_per_query']:.4f} ms/query; cluster recall@10 "
+          f"{base['cluster_recall']:.4f}, k-means {base['kmeans_s']:.2f} s, "
+          f"{base['cluster_ms_per_query']:.4f} ms/query; {wall:.1f} s")
+    check(base["exact_recall"] == 1.0, "exact baseline recall is not 1.0")
+    res["baselines"] = dict(base, wall_s=wall)
+
+    plan, wall = run("plan 100M", plan_100m, (),
+                     ("aes_mmo_tables", "xor_gather"))
+    mini = plan["mini_run"]
+    print(f"plan_100m: {plan['per_card_total_gib']} GiB a card of "
+          f"{plan['card_memory_gib']} GiB ({plan['card']}), fits "
+          f"{plan['fits']}; mini run {mini['exact']}/{mini['total']} exact "
+          f"({mini['mesh']}); {wall:.1f} s")
+    check(plan["fits"], "the SIFT100M plan does not fit the card")
+    check(mini["exact"] >= mini["total"] - 2, "plan_100m's mini run: "
+          f"{mini['exact']}/{mini['total']} exact")
+    res["plan_100m"] = dict(plan, wall_s=wall)
+    res["native"] = native_phase(seed)
+    return res, launches
+
+
 def gpu_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3841,6 +4010,12 @@ def main() -> int:
         launches[path] = read_counts(path, ("l2_distance",))
     peak_gb = max(peak_before, torch.cuda.max_memory_allocated()) / 1e9
     print(f"peak device memory over the paths {peak_gb:.3f} GB")
+    # the scale scripts (their own peak memory) and native_lib on the host
+    del engine
+    torch.cuda.empty_cache()
+    scale, scale_launches = scale_phase(args.seed + 120, reset_counts,
+                                        read_counts)
+    launches.update(scale_launches)
 
     details = dict(card=card, k1=k1, k1_ragged=k1_ragged, k1_5m=k1_5m,
                    k2=k2, k2_wide=k2_wide, k2_ragged=k2_ragged, k2_5m=k2_5m,
@@ -3848,7 +4023,7 @@ def main() -> int:
                    k4_edge=k4_edge,
                    k5=k5, k6=k6, k7=k7, paths=paths, host_engines=host,
                    private_search=private, multi_device=multi,
-                   sift100m_shard=shard, ptxas=ptxas_notes,
+                   sift100m_shard=shard, scale=scale, ptxas=ptxas_notes,
                    launches=launches, pir_select_ms=select_ms,
                    resident_state=resident, peak_device_gb=peak_gb,
                    seconds=time.perf_counter() - t_start)

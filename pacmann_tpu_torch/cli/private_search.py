@@ -4,9 +4,9 @@ package's cli/private_search.py.
 Flag-for-flag port of the reference's private-search.go:72-103 (C13):
 `python -m pacmann_tpu_torch.cli.private_search -n 1000 -d 128 -m 32 ...`.
 With no -input, the vectors and queries are synthetic (private-search.go:
-105-124). File naming convention "{data}_{n}_{dim}_{m}" is the caller's
-concern, as in the run scripts. A run without an existing -graph file needs
-the graph build, which is not ported yet, and raises.
+105-124). A run without an existing -graph file builds the graph
+(graph/build.py); with -input and no -graph it is cached as
+{data}_{n}_{dim}_{m}_graph.npy beside the input, with its aux record.
 
 -device takes the engines' torch device ("-device" alone: "cuda"); without
 it they run on the card, which raises where there is none.

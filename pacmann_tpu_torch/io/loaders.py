@@ -120,3 +120,9 @@ def save_int_matrix(path: str, mat: np.ndarray) -> None:
         return
     raise ValueError(f"unknown save extension: {ext}")
 
+
+
+# Aliases mirroring the reference's names (loader.go:197,301,306).
+LoadFloat32Matrix = load_float32_matrix
+LoadIntMatrixFromFile = load_int_matrix
+SaveIntMatrixToFile = save_int_matrix

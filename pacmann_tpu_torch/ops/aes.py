@@ -19,6 +19,11 @@ Two versions of each:
     of the T-tables Te0 and Te2 in shared memory, round keys in registers.
 prf_tables and prf_eval route a CPU tensor to the plain version and a CUDA
 tensor to the kernel; there is no fallback between them.
+
+prf_tables_native is the host tier's table, which the engines take on the
+CPU where native_lib is available (the JAX package's
+prf_offset_table_device on a CPU backend); elsewhere they call
+prf_tables.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import ctypes
 import numpy as np
 import torch
 
+from pacmann_tpu_torch import native_lib
 from pacmann_tpu_torch.ops.aes_host import expand_key
 from pacmann_tpu_torch.ops.gf2 import SBOX, gf_mul
 from pacmann_tpu_torch.utils import cuda_lib
@@ -208,3 +214,17 @@ def prf_eval(rk: torch.Tensor, tags: torch.Tensor, xs: torch.Tensor,
     if rk.device.type == "cpu":
         return prf_eval_plain(rk, tags, xs, chunk_mask)
     return aes_mmo_points_cuda(rk, tags, xs, chunk_mask)
+
+
+def prf_tables_native(rk: torch.Tensor, T: int, S: int,
+                      chunk_mask: int) -> torch.Tensor:
+    """prf_tables' contract on CPU round keys through the host tier:
+    native_lib's AES-NI table per partition (the caller checks
+    native_lib.host_route). Returns a fresh (P, T, S) int32 CPU tensor."""
+    if rk.device.type != "cpu":
+        raise ValueError(f"round keys on {rk.device}: the host tier takes "
+                         "CPU tensors")
+    out = np.empty((rk.shape[0], T, S), np.uint32)
+    for p, keys in enumerate(rk.numpy()):
+        out[p] = native_lib.prf_offset_table(keys, 0, T, S, chunk_mask)
+    return torch.from_numpy(out.view(np.int32))

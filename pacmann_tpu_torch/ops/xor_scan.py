@@ -21,14 +21,20 @@ An offset outside [0, C) is a skip. Two versions of that function:
     128-word rows, their partial sums XORed in shared memory).
 xor_gather routes a CPU tensor to the plain version and a CUDA tensor to
 the kernel; there is no fallback between them, nor between the forms.
+
+xor_scan_native is the host tier's scan on the flat (S, C*k, 128) layout,
+which the engines take on the CPU where native_lib is available (the JAX
+package's xor_scan_host); elsewhere they call their kernel's dispatcher.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from pacmann_tpu_torch import native_lib
 from pacmann_tpu_torch.utils import cuda_lib
 
 SKIP = -1   # the sentinel offset hint generation writes for a skipped chunk
@@ -163,3 +169,29 @@ def xor_server_scan(db4: torch.Tensor, qs: torch.Tensor,
     Q, P, S = qs.shape
     out = xor_gather(db4, qs.transpose(0, 1).contiguous(), k)   # (P, Q, Ep)
     return out.transpose(0, 1).reshape(Q, P, k, 128)
+
+
+def _host_array(x) -> np.ndarray:
+    """x, a tensor or a numpy array, as a read-only numpy array on the
+    host (a view where x is a contiguous CPU tensor or an array): the host
+    kernel reads live engine state in place and writes none of it."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous().numpy()
+    a = np.asarray(x).view()
+    a.flags.writeable = False
+    return a
+
+
+def xor_scan_native(db: torch.Tensor, offsets: torch.Tensor,
+                    skip: torch.Tensor, k: int) -> torch.Tensor:
+    """The scan on the flat (S, C*k, 128) int32 layout through the host
+    tier, native_lib.xor_scan (the caller checks native_lib.host_route):
+    db a CPU tensor, offsets (B, S) u32 (outside [0, C): a skip) and skip
+    (B, S) bool, tensors or numpy arrays -> a fresh (B, k, 128) int32 CPU
+    tensor."""
+    if db.device.type != "cpu":
+        raise ValueError(f"db on {db.device}: the host tier takes CPU "
+                         "tensors")
+    out = native_lib.xor_scan(_host_array(db), _host_array(offsets),
+                              _host_array(skip), k)
+    return torch.from_numpy(out.view(np.int32))

@@ -47,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from pacmann_tpu_torch import native_lib
 from pacmann_tpu_torch.ops import aes, protocol_kernels, xor_scan
 from pacmann_tpu_torch.pir import layout
 from pacmann_tpu_torch.pir.params import (
@@ -375,11 +376,15 @@ def prep_partitions(db4, rk, repl_off, *, Hp: int, R: int,
     """The offline pass over the partitions a DB holds: db4 (S, P, C*k, 128)
     int32, rk (P, 11, 16) uint8 round keys, repl_off (P, S, R) int32 local
     offsets, all on one device. One K1 launch (the PRF tables) and one K2
-    launch (every parity) on CUDA. Returns (table (P, T, S), parities
+    launch (every parity) on CUDA; on the CPU the tables are the host
+    tier's native AES-NI ones where native_lib is available (the JAX
+    engine's CPU backends). Returns (table (P, T, S), parities
     (P, T, k*128), repl_val (P, S, R, k*128), slot_col (P, S, Hp))."""
     S, P = db4.shape[:2]
     T = Hp + S * R
-    table = aes.prf_tables(rk, T, S, chunk_mask)                # (P, T, S)
+    tables = aes.prf_tables_native if native_lib.host_route(db4.device) \
+        else aes.prf_tables
+    table = tables(rk, T, S, chunk_mask)                        # (P, T, S)
     skip = _build_skip(P, T, Hp, R, S, db4.device)
     parities = xor_scan.xor_hintgen(db4, table, skip, k)
     repl_val = _gather_repl(db4, repl_off, k)

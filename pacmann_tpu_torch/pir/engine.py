@@ -26,7 +26,10 @@ ceil(n/P) entries and shares one parameter set. Queries never touch padding
 reference's padded-chunk semantics (pir.go:285-295).
 
 device=None runs on CUDA (raising where it is not available);
-device="cpu" takes the kernels' plain versions.
+device="cpu" takes the host tier where native_lib is available, as the
+JAX engine's host scans do: native AES-NI tables and one native scan of
+the flat DB with global offsets p*C + o, at prep and at each batch; else
+the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from pacmann_tpu_torch import native_lib
 from pacmann_tpu_torch.ops import aes, attic, xor_scan
 from pacmann_tpu_torch.pir import layout
 from pacmann_tpu_torch.pir.device_engine import _build_skip, pack_db
@@ -114,10 +118,15 @@ class FusedBatchPianoPIR:
         for cl in self.clients:
             cl.initialization(rng)
         rk = torch.from_numpy(np.stack([cl.rk for cl in self.clients]))
-        table = aes.prf_tables(rk.to(self.device), T, S, p.chunk_mask)
         # backup hint group g skips chunk g, in every partition
         skip = _build_skip(P, T, Hp, R, S, self.device)
-        parities = attic.xor_hintgen_pallas(self.db4, table, skip, self.k)
+        if native_lib.host_route(self.device):
+            table = aes.prf_tables_native(rk, T, S, p.chunk_mask)
+            parities = self._host_scan(table, skip)
+        else:
+            table = aes.prf_tables(rk.to(self.device), T, S, p.chunk_mask)
+            parities = attic.xor_hintgen_pallas(self.db4, table, skip,
+                                                self.k)
         parities = scan_rows(parities.reshape(P * T, -1),
                              p.entry_u32).reshape(P, T, p.entry_u32)
         offsets = to_u32(table)                 # (P, T, S)
@@ -140,6 +149,19 @@ class FusedBatchPianoPIR:
             st.repl_val = vals.reshape(S, R, p.entry_u32)
 
         self._record_stats(time.perf_counter() - t0)
+
+    def _host_scan(self, local: torch.Tensor,
+                   skip: torch.Tensor | None = None) -> torch.Tensor:
+        """The host tier's scan: (P, B, S) int32 local offsets (and skip)
+        -> (P*B, k, 128) parities, one native scan of the flat DB with the
+        global row blocks p*C + o (the JAX engine's _xor)."""
+        P, B, S = local.shape
+        base = torch.arange(P, dtype=torch.int32) * self.params.chunk_size
+        glob = (local + base[:, None, None]).reshape(P * B, S)
+        if skip is None:
+            skip = torch.zeros(glob.shape, dtype=torch.bool)
+        return xor_scan.xor_scan_native(self.db, glob, skip.reshape(P * B, S),
+                                        self.k)
 
     def dummy_preprocessing(self, rng=None):
         for cl in self.clients:
@@ -216,9 +238,11 @@ class FusedBatchPianoPIR:
         if offsets_rows:
             batch_off = from_u32(np.stack(offsets_rows).reshape(
                 P, quota, p.set_size), self.device)
-            answers = scan_rows(
-                xor_scan.xor_gather(self.db4, batch_off, self.k).reshape(
-                    P * quota, -1), p.entry_u32)
+            if native_lib.host_route(self.device):
+                out = self._host_scan(batch_off)
+            else:
+                out = xor_scan.xor_gather(self.db4, batch_off, self.k)
+            answers = scan_rows(out.reshape(P * quota, -1), p.entry_u32)
         else:
             answers = np.zeros((0, p.entry_u32), np.uint32)
 

@@ -16,10 +16,12 @@ tensors on the engine's device:
     staged form for hint generation and the row form for one query.
 
 device=None puts the server's DB, and runs both passes, on CUDA (raising
-where CUDA is not available); device="cpu" takes the kernels' plain
-versions. The JAX package's host/device size thresholds tune its TPU's
-fixed-size bitsliced block and are not carried over: a card present runs
-the passes however small. use_device_prep=False is the caller asking for
+where CUDA is not available); device="cpu" takes the host tier
+(native_lib's AES-NI table and AVX2 scan, as the JAX package's host
+paths do) where it is available, else the kernels' plain versions. The
+JAX package's host/device size thresholds tune its TPU's fixed-size
+bitsliced block and are not carried over: a card present runs the passes
+however small. use_device_prep=False is the caller asking for
 the PRF table on the CPU; the scan runs where the server's DB is, as the
 reference's does on a device-resident server.
 """
@@ -32,7 +34,8 @@ import secrets
 import numpy as np
 import torch
 
-from pacmann_tpu_torch.ops import aes, aes_host, attic
+from pacmann_tpu_torch import native_lib
+from pacmann_tpu_torch.ops import aes, aes_host, attic, xor_scan
 from pacmann_tpu_torch.pir import layout
 from pacmann_tpu_torch.pir.device_engine import _build_skip, pack_db
 from pacmann_tpu_torch.pir.params import (
@@ -53,6 +56,20 @@ def scan_rows(out: torch.Tensor, entry_u32: int) -> np.ndarray:
     the host, the padding columns left behind on the device."""
     rows = out.reshape(out.shape[0], -1)[:, :entry_u32]
     return to_u32(rows.contiguous())
+
+
+def flat_scan(db: torch.Tensor, offsets, skip, k: int,
+              entry_u32: int) -> np.ndarray:
+    """XOR scan of the flat (S, C*k, 128) DB: (B, S) offsets (u32 numpy or
+    int32 tensor) and skip -> (B, entry_u32) u32 parities. The host tier
+    (native_lib.xor_scan) for a CPU DB where it is available, else
+    attic.xor_scan_pallas (kernel K7c on CUDA, its plain version on the
+    CPU)."""
+    if native_lib.host_route(db.device):
+        out = xor_scan.xor_scan_native(db, offsets, skip, k)
+    else:
+        out = attic.xor_scan_pallas(db, offsets, skip, k)
+    return scan_rows(out, entry_u32)
 
 
 class PianoServer:
@@ -86,8 +103,8 @@ class PianoServer:
         offsets = np.asarray(offsets, np.uint32)
         if skip is None:
             skip = np.zeros(offsets.shape, bool)
-        out = attic.xor_scan_pallas(self.db, offsets, skip, self.k)
-        return scan_rows(out, self.params.entry_u32)
+        return flat_scan(self.db, offsets, skip, self.k,
+                         self.params.entry_u32)
 
     def private_query(self, offsets: np.ndarray) -> np.ndarray:
         return self.private_query_batch(offsets[None])[0]
@@ -187,15 +204,19 @@ class PianoClient:
                 else self.device)
 
     def _offset_table(self, T: int, S: int) -> torch.Tensor:
-        """(T, S) int32 PRF(tag, chunk) & chunk_mask on the prep device."""
-        rk = torch.from_numpy(self.rk[None].copy()).to(self._prep_device())
-        return aes.prf_tables(rk, T, S, self.params.chunk_mask)[0]
+        """(T, S) int32 PRF(tag, chunk) & chunk_mask on the prep device:
+        the host tier's table on the CPU where it is available."""
+        dev = self._prep_device()
+        rk = torch.from_numpy(self.rk[None].copy()).to(dev)
+        tables = aes.prf_tables_native if native_lib.host_route(dev) \
+            else aes.prf_tables
+        return tables(rk, T, S, self.params.chunk_mask)[0]
 
     def _xor_scan(self, server: PianoServer, offsets, skip) -> np.ndarray:
         """(B, S) offsets and skip -> (B, entry_u32) parities, scanned on
         the server's device."""
-        out = attic.xor_scan_pallas(server.db, offsets, skip, server.k)
-        return scan_rows(out, self.params.entry_u32)
+        return flat_scan(server.db, offsets, skip, server.k,
+                         self.params.entry_u32)
 
     # -- online -------------------------------------------------------------
 

@@ -6,6 +6,9 @@ cudaGetLastError(). It is compiled on first use for sm_90a into a shared
 library under pacmann_tpu_torch/build/ (git-ignored), named by a hash of
 its source and of csrc/'s headers so that an edited kernel is rebuilt, and
 loaded once per process.
+The host tier's C++ (csrc/host/<name>.cpp, native_lib.py's AES-NI and
+AVX2 kernels) is built the same way by load_host, with the host's C++
+compiler.
 Nothing here runs at import time: machines without nvcc import the
 package and use the plain torch versions on CPU tensors.
 """
@@ -25,9 +28,12 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+HOST_CSRC = CSRC / "host"
 BUILD = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-maes", "-mavx2",
+              "-mfma"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
@@ -43,37 +49,68 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _host_cxx() -> str:
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler found: the host library cannot be "
+                       "built")
+
+
 def source_digest(src: Path) -> str:
-    """Hash of a source and of every header under csrc/ (a source may
+    """Hash of a source and of every header in its directory (a source may
     include any of them), so that editing either rebuilds the library."""
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    for header in sorted(src.parent.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _build(name: str, src: Path, compiler: list) -> tuple[Path, str]:
+    """Compile src with `compiler` (its command before -o) into
+    BUILD/lib<name>-<digest>.so unless that build exists. Returns the
+    library's path and the compiler's diagnostics ("" for a build found)."""
+    so = BUILD / f"lib{name}-{source_digest(src)}.so"
+    if so.exists():
+        return so, ""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([*compiler, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{Path(compiler[0]).name} failed for "
+                           f"{src.name}:\n{proc.stderr}")
+    os.replace(tmp, so)
+    build_seconds[name] = time.perf_counter() - t0
+    return so, proc.stderr
 
 
 def load(name: str) -> ctypes.CDLL:
     """Compile csrc/<name>.cu if its build is missing, load it, cache it."""
     if name in _LIBS:
         return _LIBS[name]
-    src = CSRC / f"{name}.cu"
-    digest = source_digest(src)
-    so = BUILD / f"lib{name}-{digest}.so"
-    if not so.exists():
-        BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
-        os.replace(tmp, so)
-        build_seconds[name] = time.perf_counter() - t0
-        (BUILD / f"{name}.ptxas.txt").write_text(proc.stderr)
+    so, notes = _build(name, CSRC / f"{name}.cu",
+                       [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"])
+    if notes:
+        (BUILD / f"{name}.ptxas.txt").write_text(notes)
     lib = ctypes.CDLL(str(so))
     _LIBS[name] = lib
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """Compile csrc/host/<name>.cpp for this CPU (HOST_FLAGS: AES-NI,
+    AVX2, FMA) if its build is missing, load it, cache it. Raises
+    RuntimeError where no C++ compiler is found or the build fails."""
+    key = f"host/{name}"
+    if key in _LIBS:
+        return _LIBS[key]
+    so, _ = _build(name, HOST_CSRC / f"{name}.cpp", [_host_cxx(), *HOST_FLAGS])
+    lib = ctypes.CDLL(str(so))
+    _LIBS[key] = lib
     return lib
 
 

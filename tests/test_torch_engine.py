@@ -15,6 +15,7 @@ import torch
 
 from pacmann_tpu.ops.xor_scan import xor_scan_xla
 from pacmann_tpu.pir.engine import FusedBatchPianoPIR as JaxFused
+from pacmann_tpu_torch import native_lib
 from pacmann_tpu_torch.ops import aes, attic, xor_scan
 from pacmann_tpu_torch.pir.batch import SimpleBatchPianoPIR
 from pacmann_tpu_torch.pir.engine import FusedBatchPianoPIR
@@ -203,7 +204,10 @@ def test_fused_prep_launches_k1_once_k7b_once_and_k2_per_batch(monkeypatch):
     """The engine's passes go through the dispatchers of K1, K7b and K2:
     prep evaluates every partition's table in one K1 call and scans in
     one K7b call (staged form where hintgen_form picks it), and a batch
-    is one K2 call on (P, quota, S) offsets (row form)."""
+    is one K2 call on (P, quota, S) offsets (row form). The host tier,
+    which takes the CPU's passes where native_lib is available, is turned
+    off."""
+    monkeypatch.setattr(native_lib, "available", lambda: False)
     calls = []
     k1_plain = aes.prf_tables_plain
     k2_plain = xor_scan.xor_gather_plain

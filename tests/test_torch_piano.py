@@ -14,6 +14,7 @@ import torch
 
 from pacmann_tpu.pir.piano import PianoPIR as JaxPIR
 from pacmann_tpu.pir.piano import QueryError as JaxQueryError
+from pacmann_tpu_torch import native_lib
 from pacmann_tpu_torch.ops import aes, attic
 from pacmann_tpu_torch.pir.piano import PianoPIR, QueryError
 
@@ -181,7 +182,9 @@ def test_prep_launches_k1_and_k7c_only(monkeypatch):
     """The passes go through the dispatchers of kernels K1 and K7c: with
     their CUDA wrappers standing in for the plain versions, prep calls K1
     once and K7c once (staged form where flat_form picks it), and every
-    query, real or dummy, K7c once in its row form."""
+    query, real or dummy, K7c once in its row form. The host tier, which
+    takes the CPU's passes where native_lib is available, is turned off."""
+    monkeypatch.setattr(native_lib, "available", lambda: False)
     calls = []
     k1_plain, k7c_plain = aes.prf_tables_plain, attic.xor_scan_pallas_plain
 
