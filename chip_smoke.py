@@ -162,7 +162,21 @@ queries). Phases, in order:
      at full width on a random graph (ms/query, recall@10 against
      brute_force_knn), and recall on the exact 32-NN graph of 131,072
      manifold vectors built by brute_force_knn, at least 0.2 above a
-     random graph's; then the scale phase (scale_phase), each script a
+     random graph's; then the bench phase (bench_phase): bench_torch.py's
+     three modes at full size, each a path of its own, its JSON line
+     printed: "bench" (1M x 640 B: prep, batch-96 success at least 0.98,
+     fused groups 1, 16, 32 and 64 with fetch success within 0.03 of the
+     bound, the device-only group 1 answering valid ids), "bench big"
+     (3,201,821 x 896 B, batch 32: success within 0.03 under the FCFS
+     model of a batch and its retry round), both with three distinct prep
+     checksums and one exact row a partition after the last prep, and
+     "bench linear" (100 x 1M x 128 u32 dot products through plain torch,
+     no kernel; 32 sampled products equal to numpy's mod 2^32); the host
+     syncs of one device-only group-1 search by site
+     (set_sync_debug_mode); K1 at the BIG prep lattice (16, 24,416, 196)
+     and K2's row form at its gather (C = 1,024) against their plain
+     versions, bit-equal and timed beside their bounds; then the scale
+     phase (scale_phase), each script a
      path of its own, through its main() as `python -m` runs it:
      scripts.e2e_scale's canonical 1M demo (continuum data of 12 latent
      dimensions made on the card, rounds 9, keep 16, corridor 16:2:3, k
@@ -267,24 +281,6 @@ class SmokeFailure(RuntimeError):
 def check(cond, what: str):
     if not cond:
         raise SmokeFailure(what)
-
-
-def synth_raw(n: int, entry_u32: int, seed: int, float_cols: int,
-              nbr_cols: int) -> np.ndarray:
-    """Synthetic DB as bench.py's synth_raw builds it: one random block
-    tiled, valid f32 bit patterns in the first float_cols words, distinct
-    first words, and distinct uniform neighbor ids in [0, n) in the next
-    nbr_cols words."""
-    rng = np.random.default_rng(seed)
-    block = 1 << 14
-    base = rng.integers(0, 2**32, size=(block, entry_u32), dtype=np.uint32)
-    base[:, :float_cols] = np.ascontiguousarray(
-        rng.random((block, float_cols), dtype=np.float32)).view("<u4")
-    raw = np.tile(base, ((n + block - 1) // block, 1))[:n]
-    raw[:, 0] = np.arange(n, dtype=np.uint32)
-    raw[:, float_cols:float_cols + nbr_cols] = rng.integers(
-        0, n, size=(n, nbr_cols), dtype=np.uint32)
-    return raw
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
@@ -652,24 +648,30 @@ def compare_k2_ragged(seed: int) -> dict:
     return k2_forms(db, off, k, "ragged", reps=20, plain_reps=2)
 
 
-def compare_k2_5m(rk, seed: int) -> tuple[dict, dict]:
-    """K1 and K2 at the 5M pin engines' prep shape: n = 5M entries of 640 B
-    (P = 16, T = 35,552, S = 156, C = 2,048). K1's table of those
+def compare_k2_prep(rk, seed: int, n: int, entry_bytes: int,
+                    label: str) -> tuple[dict, dict]:
+    """K1 and K2 at the prep shape of an engine of n entries of
+    entry_bytes, batch 32: the 5M pin's (640 B: P = 16, T = 35,552, S =
+    156, C = 2,048, 5.23 GB) and bench's BIG deployment's (3,201,821 x
+    896 B: T = 24,416, S = 196, C = 1,024, 3.29 GB). K1's table of those
     parameters against its plain version, then K2 on it with the engine's
-    skip mask, on a random 5.23 GB DB. Returns (K2's, K1's results)."""
+    skip mask, on a random DB of that shape. Returns (K2's, K1's
+    results)."""
     import torch
 
     from pacmann_tpu_torch.ops import xor_scan
+    from pacmann_tpu_torch.pir import layout
     from pacmann_tpu_torch.pir.device_engine import _build_skip
     from pacmann_tpu_torch.pir.params import (derive_batch_params,
                                               derive_piano_params)
 
-    c = derive_batch_params(BIG_N, ENTRY_BYTES, BATCH, FAIL)
-    p = derive_piano_params(c.partition_size, ENTRY_BYTES, FAIL)
+    c = derive_batch_params(n, entry_bytes, BATCH, FAIL)
+    p = derive_piano_params(c.partition_size, entry_bytes, FAIL)
     S, Hp, R, C = (p.set_size, p.primary_hint_num, p.max_query_per_chunk,
                    p.chunk_size)
-    T, P, k = Hp + S * R, c.partition_num, 2
-    k1, table = k1_check(rk, T, S, p.chunk_mask, "5M prep", reps=5,
+    T, P = Hp + S * R, c.partition_num
+    k = layout.entry_rows(entry_bytes // 4)
+    k1, table = k1_check(rk, T, S, p.chunk_mask, label, reps=5,
                          plain_reps=1)
     off = torch.where(_build_skip(P, T, Hp, R, S, "cuda"), xor_scan.SKIP,
                       table).contiguous()
@@ -678,7 +680,7 @@ def compare_k2_5m(rk, seed: int) -> tuple[dict, dict]:
     gen.manual_seed(seed)
     db = torch.empty((S, P, C * k, 128), dtype=torch.int32,
                      device="cuda").random_(-2**31, 2**31, generator=gen)
-    res = k2_forms(db, off, k, "5M prep", reps=3, plain_reps=1)
+    res = k2_forms(db, off, k, label, reps=3, plain_reps=1)
     del db, off
     torch.cuda.empty_cache()
     return res, k1
@@ -3746,6 +3748,140 @@ def scale_phase(seed: int, reset, read_counts) -> tuple[dict, dict]:
     return res, launches
 
 
+def fused_step_syncs(db, raw: np.ndarray, seed: int) -> dict:
+    """The host syncs of one device-only group-1 search
+    (bench.device_steps: bench's 20 steps, parallel 3) on the main
+    deployment's DB, counted under torch.cuda.set_sync_debug_mode("warn"),
+    each with the port's frames that led to it (innermost first). A
+    control sync (.item()) first shows that the mode reports syncs."""
+    import traceback
+    import warnings
+
+    import torch
+
+    from pacmann_tpu_torch import bench
+    from pacmann_tpu_torch.pir.device_engine import DevicePianoEngine
+    from pacmann_tpu_torch.private.fused_search import FusedPrivateSearch
+
+    e = DevicePianoEngine(N, ENTRY_BYTES, BATCH, None, FAIL, packed_db=db)
+    e.preprocessing(rng=np.random.default_rng(seed))
+    rng = np.random.default_rng(seed + 1)
+    sids = rng.choice(N, 1000, replace=False)
+    srows = raw[sids]
+    fs = FusedPrivateSearch(
+        e, sids, np.ascontiguousarray(srows[:, :DIM]).view("<f4"),
+        srows[:, DIM:DIM + M].astype(np.int64) % N, dim=DIM, m=M, n=N)
+    q = torch.as_tensor(rng.random((1, DIM), dtype=np.float32),
+                        device="cuda")
+    fs.generator.manual_seed(seed)
+    bench.device_steps(fs, q, bench.STEPS, bench.PARALLEL)      # warm
+    torch.cuda.synchronize()
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        port = [f"{Path(f.filename).name}:{f.lineno}"
+                for f in traceback.extract_stack()[:-1]
+                if "pacmann_tpu_torch" in f.filename]
+        sites.append(" < ".join(reversed(port))
+                     or f"{Path(filename).name}:{lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            torch.zeros(1, device="cuda").item()                # control
+            control = len(sites)
+            bench.device_steps(fs, q, bench.STEPS, bench.PARALLEL)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    check(control >= 1, "set_sync_debug_mode reported no sync for .item()")
+    by_site = collections.Counter(sites[control:])
+    total = sum(by_site.values())
+    print(f"device-only group 1: {total} host syncs in {bench.STEPS} steps "
+          f"({total / bench.STEPS:.2f} a step); by site: "
+          + "; ".join(f"{n}x {site}" for site, n in by_site.most_common()))
+    return dict(syncs=total, per_step=total / bench.STEPS,
+                sites=dict(by_site.most_common()))
+
+
+def bench_phase(db, raw: np.ndarray, seed: int, reset,
+                read_counts) -> tuple[dict, dict]:
+    """pacmann_tpu_torch.bench's three modes at full size, as `python
+    bench_torch.py` runs them on the engine's protocol route, each a path
+    of its own: "bench" (1M x 640 B: prep, batch 96, fused groups 1, 16,
+    32 and 64, the device-only group 1), "bench big" (3,201,821 x 896 B,
+    batch 32) and "bench linear" (100 x 1M x 128 u32 dot products, plain
+    torch: no kernel). Each mode's JSON line is printed, then held: batch
+    success at least 0.98 (main) or within 0.03 under the FCFS model of a
+    batch and its retry round (BIG: quota 2 a round), fetch success within
+    0.03 of its bound, distinct prep checksums and one exact row a
+    partition after the last prep, valid device-only answers, 32 exact
+    sampled products. Then the device-only search's host syncs
+    (fused_step_syncs), and K1 and K2 (row form) at the BIG prep shape
+    against their plain versions (uncounted)."""
+    import torch
+
+    from pacmann_tpu_torch import bench
+    from pacmann_tpu_torch.ops import aes
+    from pacmann_tpu_torch.pir.device_engine import resolve_route
+    from pacmann_tpu_torch.pir.params import expected_success_rate
+
+    route = resolve_route(None, "cuda")
+    engine_kernels = path_kernels(route, False)
+    P = BATCH // 2                                  # the partitions
+    res, launches = {}, {}
+    for path, run, own in (
+            ("bench", lambda: bench.hintgen(bench.MAIN_N), engine_kernels),
+            ("bench big", bench.big_perf, engine_kernels),
+            ("bench linear", bench.linear_scan, ())):
+        print(f"-- path {path}")
+        torch.cuda.empty_cache()
+        reset()
+        t0 = time.perf_counter()
+        out = run()
+        launches[path] = read_counts(path, own)
+        print(json.dumps(out))
+        res[path] = dict(out, seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+        x = out["extra"]
+        check(x["platform"] == "gpu", f"{path}: platform {x['platform']}")
+        if path != "bench linear":
+            check(len(set(x["prep_checksums"])) == bench.PREP_RUNS,
+                  f"{path}: prep checksums {x['prep_checksums']}")
+            check(x["rows_exact_after_prep"] == f"{P}/{P}",
+                  f"{path}: {x['rows_exact_after_prep']} rows exact after "
+                  "the last prep")
+    x = res["bench"]["extra"]
+    check(x["online_success_rate"] >= 0.98,
+          f"bench: batch-96 success {x['online_success_rate']} < 0.98")
+    for G in (16, 32, 64):
+        succ, b = x[f"fused{G}_fetch_success"], x[f"fused{G}_success_bound"]
+        check(abs(succ - b) <= 0.03, f"bench: group {G} fetch success "
+              f"{succ} is not within 0.03 of its bound {b}")
+    check(x["fused_group1_device_ids_valid"],
+          "bench: the device-only group 1 answered invalid ids")
+    x = res["bench big"]["extra"]
+    model = expected_success_rate(bench.BIG_BATCH, P,
+                                  2 * (bench.BIG_BATCH // P), FAIL)
+    print(f"bench big: batch-32 success {x['batch_success_rate']} against "
+          f"the model of a batch and its retry round {model:.4f}")
+    check(x["batch_success_rate"] >= model - 0.03,
+          f"bench big: batch-32 success {x['batch_success_rate']} < "
+          f"{model:.4f} - 0.03")
+    res["bench big"]["success_model"] = model
+    check(res["bench linear"]["extra"]["sampled_products_exact"]
+          == f"{bench.LINEAR_SAMPLES}/{bench.LINEAR_SAMPLES}",
+          "bench linear: sampled products differ from numpy's")
+    res["syncs"] = fused_step_syncs(db, raw, seed)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 1)
+    rk = aes.round_keys([rng.bytes(16) for _ in range(P)]).cuda()
+    res["k2_big"], res["k1_big"] = compare_k2_prep(
+        rk, seed + 2, bench.BIG_N, bench.BIG_ENTRY_BYTES, "BIG prep")
+    return res, launches
+
+
 def gpu_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3773,6 +3909,7 @@ def main() -> int:
             DevicePianoEngine, _build_skip)
         from pacmann_tpu_torch.private.fused_search import FusedPrivateSearch
         from pacmann_tpu_torch.utils import cuda_lib
+        from pacmann_tpu_torch.bench import synth_raw
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})",
               file=sys.stderr)
@@ -3874,7 +4011,8 @@ def main() -> int:
     # the repair pins: K2 at k = 5 and 8; K3/K4 at Hp = 14,336 (n = 7M)
     k2_wide = compare_k2_wide(table, skip, p.chunk_size, args.seed + 19)
     k2_ragged = compare_k2_ragged(args.seed + 23)
-    k2_5m, k1_5m = compare_k2_5m(k1_rk, args.seed + 24)
+    k2_5m, k1_5m = compare_k2_prep(k1_rk, args.seed + 24, BIG_N,
+                                   ENTRY_BYTES, "5M prep")
     c7 = derive_batch_params(PROTOCOL_PIN_N, ENTRY_BYTES, BATCH, FAIL)
     p7 = derive_piano_params(c7.partition_size, ENTRY_BYTES, FAIL)
     table7 = aes.aes_mmo_cuda(
@@ -4010,6 +4148,10 @@ def main() -> int:
         launches[path] = read_counts(path, ("l2_distance",))
     peak_gb = max(peak_before, torch.cuda.max_memory_allocated()) / 1e9
     print(f"peak device memory over the paths {peak_gb:.3f} GB")
+    # bench_torch.py's three modes at full size, K1 and K2 at its BIG shape
+    bench_res, bench_launches = bench_phase(engine.db, raw, args.seed + 130,
+                                            reset_counts, read_counts)
+    launches.update(bench_launches)
     # the scale scripts (their own peak memory) and native_lib on the host
     del engine
     torch.cuda.empty_cache()
@@ -4023,7 +4165,8 @@ def main() -> int:
                    k4_edge=k4_edge,
                    k5=k5, k6=k6, k7=k7, paths=paths, host_engines=host,
                    private_search=private, multi_device=multi,
-                   sift100m_shard=shard, scale=scale, ptxas=ptxas_notes,
+                   sift100m_shard=shard, scale=scale, bench=bench_res,
+                   ptxas=ptxas_notes,
                    launches=launches, pir_select_ms=select_ms,
                    resident_state=resident, peak_device_gb=peak_gb,
                    seconds=time.perf_counter() - t_start)
@@ -4047,14 +4190,15 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("aes_mmo_tables", "aes_mmo.cu",
               "pacmann_tpu/ops/aes_pallas.py:129",
-              max(v["max_abs_err"] for v in (k1, k1_ragged, k1_5m,
-                                             shard["k1"])), k1, k1),
+              max(v["max_abs_err"] for v in (
+                  k1, k1_ragged, k1_5m, shard["k1"], bench_res["k1_big"])),
+              k1, k1),
         entry("xor_gather", "xor_gather.cu",
               "pacmann_tpu/ops/xor_scan.py:346",
               max(v["max_abs_err"] for v in (
                   *k2.values(), *k2_wide["k=5"].values(),
                   *k2_wide["k=8"].values(), k2_ragged, k2_5m,
-                  shard["k2"])),
+                  shard["k2"], bench_res["k2_big"])),
               k2["prep"], k2["prep"]),
         entry("claim_select", "protocol.cu",
               "pacmann_tpu/ops/protocol_kernels.py:119",

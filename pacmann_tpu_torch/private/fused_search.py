@@ -248,6 +248,26 @@ class FusedPrivateSearch:
             left -= lens[-1]
         return lens
 
+    def run_steps(self, beam, stats, queries_d, rand_all, rnd_all,
+                  lo: int, hi: int, *, parallel: int, quota: int):
+        """Beam steps [lo, hi) of a group on the engine's device: frontier
+        pop, dedup and FCFS routing, the engine's round, decode and update.
+        Writes `beam` and `stats` in place; no budget check, refresh or
+        bookkeeping, and no copy to the host of its own."""
+        e = self.engine
+        P = e.config.partition_num
+        for g in range(lo, hi):
+            (fid, known, is_first, keep, slot, fo_idx, has_first,
+             idx_q) = _route_core(
+                *beam, rand_all[g], psize=e.config.partition_size, m=self.m,
+                P=P, parallel=parallel, quota=quota, n=self.n)
+            entries, oks = e._round(idx_q, rnd_all[g])
+            _update_core(
+                beam, stats, queries_d, entries, oks,
+                (fid, known, is_first, keep, slot, fo_idx, has_first), g,
+                dim=self.dim, m=self.m, k=e.k, P=P, parallel=parallel,
+                quota=quota)
+
     def search(self, queries: np.ndarray, k: int, max_step: int,
                parallel: int, step_randoms=None, return_steps: bool = False):
         """-> (Q, k) int64 answer ids (-1 padded); with return_steps also the
@@ -298,17 +318,8 @@ class FusedPrivateSearch:
                     # finish the queued steps before the refresh timer starts
                     torch.cuda.synchronize(dev)
                 self.last_maintenance_s += self._refresh()
-            for g in range(base, base + seg):
-                (fid, known, is_first, keep, slot, fo_idx, has_first,
-                 idx_q) = _route_core(
-                    *beam, rand_all[g], psize=e.config.partition_size,
-                    m=self.m, P=P, parallel=parallel, quota=quota, n=self.n)
-                entries, oks = e._round(idx_q, rnd_all[g])
-                _update_core(
-                    beam, stats, queries_d, entries, oks,
-                    (fid, known, is_first, keep, slot, fo_idx, has_first),
-                    g, dim=self.dim, m=self.m, k=e.k, P=P,
-                    parallel=parallel, quota=quota)
+            self.run_steps(beam, stats, queries_d, rand_all, rnd_all,
+                           base, base + seg, parallel=parallel, quota=quota)
             # budget bookkeeping mirrors engine.query (batch-pir.go:239-245)
             e.queries_made_in_partition += need
             e.finished_batch_num += seg * (F // e.config.batch_size)
@@ -324,6 +335,11 @@ class FusedPrivateSearch:
         if return_steps:
             return out_np, out_steps.cpu().numpy().astype(np.int64)
         return out_np
+
+    def budget_left(self) -> int:
+        """Sub-queries a partition may still make in this hint window."""
+        e = self.engine
+        return e.params.max_query_num - e.queries_made_in_partition
 
     def fetch_success_rate(self) -> float:
         """Served / distinct-wanted fetches (cumulative, device-measured)."""

@@ -145,3 +145,20 @@ def test_dummy_refresh_matches_reference():
     assert not have["primary_parity"].any() and not have["table"].any()
     queries = rng.integers(0, 8, size=(2, 8)).astype(np.float32)
     _search_both(ref, got, queries, 5, 4, 2, seed=9)
+
+
+def test_budget_left_matches_reference():
+    """budget_left() equals JAX's at a fresh window, after a search inside
+    it, and after a search that crosses a refresh."""
+    ref, got, rng = _pair(46, prep_seed=5)
+    ref.engine._rng = np.random.default_rng(7)
+    got.engine._rng = np.random.default_rng(7)
+    max_q = got.engine.params.max_query_num
+    assert got.budget_left() == ref.budget_left() == max_q
+    queries = rng.integers(0, 8, size=(2, 8)).astype(np.float32)
+    _search_both(ref, got, queries, 5, 3, 2, seed=3)
+    assert got.refreshes == 0
+    assert got.budget_left() == ref.budget_left() < max_q
+    _search_both(ref, got, queries, 5, 12, 3, seed=11)
+    assert got.refreshes >= 1
+    assert got.budget_left() == ref.budget_left()
