@@ -49,7 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="batch PIR engine (fused = one device scan per batch)")
     p.add_argument("-concurrent", type=int, default=1,
                    help="queries advanced in lockstep per oracle batch")
-    p.add_argument("-profile", default="", help="torch.profiler trace dir")
+    p.add_argument("-profile", default="",
+                   help="torch.profiler trace dir; the trace carries the "
+                        "program's pacmann.* spans")
     p.add_argument("-seed", type=int, default=0)
     p.add_argument("-verbose", action="store_true")
     p.add_argument("-starts", default="random", choices=["random", "centroid"],

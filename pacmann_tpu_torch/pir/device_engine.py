@@ -42,7 +42,6 @@ updated in place where JAX donated and rebuilt it.
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -56,7 +55,7 @@ from pacmann_tpu_torch.pir.params import (
     derive_batch_params,
     derive_piano_params,
 )
-from pacmann_tpu_torch.utils import cuda_lib
+from pacmann_tpu_torch.utils import cuda_lib, trace
 from pacmann_tpu_torch.utils.u32 import first_true, from_u32, to_u32, u32_view
 
 # Phase-C refresh form: row scatters up to this many update rows per
@@ -156,9 +155,10 @@ def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
     dev = idx_q.device
     route = resolve_route(route, dev)
     if route == "fused" and rk is None:
-        sel, qs = protocol_kernels.select_full(
-            slot_col, prog, tag, table, repl_idx, hist, finished, idx_q,
-            rnd_q, C=C, R=R, Hp=Hp, S=S, max_q=max_q, dpp=dpp)
+        with trace.span("round.claim"):
+            sel, qs = protocol_kernels.select_full(
+                slot_col, prog, tag, table, repl_idx, hist, finished, idx_q,
+                rnd_q, C=C, R=R, Hp=Hp, S=S, max_q=max_q, dpp=dpp)
         return (*sel, None), qs
 
     real_q = idx_q >= 0
@@ -168,12 +168,13 @@ def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
 
     # ---- Phase A: slot selection
     p_ix2 = torch.arange(P, device=dev)[None, :].expand(Q, P)
-    if route == "pallas":
-        hit_q, found = protocol_kernels.claim_select(
-            slot_col, prog, chunk_q, off_q, real_q, C=C, dpp=dpp)
-    else:
-        hit_q, found = _claim_fixpoint(slot_col, prog, chunk_q, off_q,
-                                       real_q, C=C, dpp=dpp)
+    with trace.span("round.claim"):
+        if route == "pallas":
+            hit_q, found = protocol_kernels.claim_select(
+                slot_col, prog, chunk_q, off_q, real_q, C=C, dpp=dpp)
+        else:
+            hit_q, found = _claim_fixpoint(slot_col, prog, chunk_q, off_q,
+                                           real_q, C=C, dpp=dpp)
 
     # ---- budgets, assigned by round order
     s_ar = torch.arange(S, device=dev)
@@ -247,11 +248,19 @@ def _claim_fixpoint(slot_col, prog, chunk_q, off_q, real_q, *, C, dpp):
         found = elig_eff.any(dim=2)
         match = found[:, :, None] & (cand[:, :, None] == h_iota)
         new_owner = torch.where(match.any(dim=0), first_true(match, 0), Q)
+        trace.count("sync.claim")
         changed = bool((new_owner != owner).any())
         owner = new_owner
         if not changed:
             break
     return torch.where(found, cand, 0), found
+
+
+def _masked(x, mask):
+    """x[mask]: a boolean-mask read of the scatter refresh, whose size the
+    host waits for (counter sync.refresh_mask, one a read)."""
+    trace.count("sync.refresh_mask")
+    return x[mask]
 
 
 def _pir_finish(repl_val, bpar, table, carry, sel, resp, *, C, R, Hp, S,
@@ -282,12 +291,12 @@ def _pir_finish(repl_val, bpar, table, carry, sel, resp, *, C, R, Hp, S,
     if refresh == "scatter":
         # rows not served are left out (the JAX engine routes them to the
         # out-of-bounds index Hp, which its scatter drops)
-        pg = p_ix.expand(Q, P)[ok_q]
-        h = hit_q[ok_q]
-        ppar[pg, h] = new_par[ok_q]
-        tag[pg, h] = btag[ok_q].to(tag.dtype)
-        prog[pg, h] = idxu_q[ok_q].to(prog.dtype)
-        slot_col[pg, :, h] = new_col[ok_q]
+        pg = _masked(p_ix.expand(Q, P), ok_q)
+        h = _masked(hit_q, ok_q)
+        ppar[pg, h] = _masked(new_par, ok_q)
+        tag[pg, h] = _masked(btag, ok_q).to(tag.dtype)
+        prog[pg, h] = _masked(idxu_q, ok_q).to(prog.dtype)
+        slot_col[pg, :, h] = _masked(new_col, ok_q)
     elif refresh == "dense":
         # invert the mapping: for every primary slot (p, h), the round q
         # that refreshed it (at most one), then masked selects
@@ -324,12 +333,15 @@ def _pir_batch(db, table, repl_idx, repl_val, bpar, carry, idx_q, rnd_q,
     client (see _pir_select), with table None.
     Returns (carry, entries (Q, P, k*128) int32, ok (Q, P) bool)."""
     Q, P = idx_q.shape
-    sel, qs = _pir_select(table, repl_idx, carry, idx_q, rnd_q, C=C, R=R,
-                          Hp=Hp, S=S, max_q=max_q, dpp=dpp, route=route,
-                          rk=rk)
-    resp = xor_scan.xor_server_scan(db, qs, k).reshape(Q, P, k * 128)
-    return _pir_finish(repl_val, bpar, table, carry, sel, resp, C=C, R=R,
-                       Hp=Hp, S=S, refresh=refresh)
+    with trace.span("round.select"):
+        sel, qs = _pir_select(table, repl_idx, carry, idx_q, rnd_q, C=C,
+                              R=R, Hp=Hp, S=S, max_q=max_q, dpp=dpp,
+                              route=route, rk=rk)
+    with trace.span("round.scan"):
+        resp = xor_scan.xor_server_scan(db, qs, k).reshape(Q, P, k * 128)
+    with trace.span("round.finish"):
+        return _pir_finish(repl_val, bpar, table, carry, sel, resp, C=C,
+                           R=R, Hp=Hp, S=S, refresh=refresh)
 
 
 def pack_partitions(raw: torch.Tensor, lo_p: int, hi_p: int, *, S: int,
@@ -384,11 +396,14 @@ def prep_partitions(db4, rk, repl_off, *, Hp: int, R: int,
     T = Hp + S * R
     tables = aes.prf_tables_native if native_lib.host_route(db4.device) \
         else aes.prf_tables
-    table = tables(rk, T, S, chunk_mask)                        # (P, T, S)
-    skip = _build_skip(P, T, Hp, R, S, db4.device)
-    parities = xor_scan.xor_hintgen(db4, table, skip, k)
-    repl_val = _gather_repl(db4, repl_off, k)
-    slot_col = table[:, :Hp, :].transpose(1, 2).contiguous()
+    with trace.span("prep.k1"):
+        table = tables(rk, T, S, chunk_mask)                    # (P, T, S)
+    with trace.span("prep.k2"):
+        skip = _build_skip(P, T, Hp, R, S, db4.device)
+        parities = xor_scan.xor_hintgen(db4, table, skip, k)
+    with trace.span("prep.repl"):
+        repl_val = _gather_repl(db4, repl_off, k)
+        slot_col = table[:, :Hp, :].transpose(1, 2).contiguous()
     return table, parities, repl_val, slot_col
 
 
@@ -519,17 +534,21 @@ class DevicePianoEngine:
         (P, 11, 16) uint8 round keys, repl_off / repl_idx (P, S, R) u32.
         Returns their state."""
         p = self.params
-        rk = rk.to(device)
+        with trace.span("prep.upload"):
+            rk = rk.to(device)
+            repl_off_t = from_u32(repl_off, device)
+            repl_idx_t = from_u32(repl_idx, device)
         table, parities, repl_val, slot_col = prep_partitions(
-            db4, rk, from_u32(repl_off, device), Hp=p.primary_hint_num,
+            db4, rk, repl_off_t, Hp=p.primary_hint_num,
             R=p.max_query_per_chunk, chunk_mask=p.chunk_mask, k=self.k)
         # a table-free engine keeps the round keys instead, the reference's
         # client storage model: the online path re-derives the offsets
         offsets = rk if self.table_free else table
         del table
-        return new_state(offsets, parities, from_u32(repl_idx, device),
-                         repl_val, slot_col, Hp=p.primary_hint_num,
-                         table_free=self.table_free)
+        with trace.span("prep.state"):
+            return new_state(offsets, parities, repl_idx_t, repl_val,
+                             slot_col, Hp=p.primary_hint_num,
+                             table_free=self.table_free)
 
     def _prep_state(self, rk: torch.Tensor, repl_off: np.ndarray,
                     repl_idx: np.ndarray):
@@ -571,7 +590,9 @@ class DevicePianoEngine:
         dummy), rnd_q (Q, P, S) int32 dummy offsets, both on the engine's
         device. Updates the state in place; returns (entries (Q, P, k*128)
         int32, ok (Q, P) bool) on the engine's device."""
-        return self._round_on(self.db, self.state, idx_q, rnd_q, refresh)
+        with trace.span("round"):
+            return self._round_on(self.db, self.state, idx_q, rnd_q,
+                                  refresh)
 
     def _round_on(self, db4, st: dict, idx_q, rnd_q, refresh=None):
         """_pir_batch over the partitions db4 and st hold, on their device:
@@ -598,30 +619,37 @@ class DevicePianoEngine:
         self.comm_cost_per_batch_offline = int(db_bytes / self.support_batch_num)
 
     def preprocessing(self, rng: np.random.Generator | None = None):
-        t0 = time.perf_counter()
-        self.finished_batch_num = 0
-        self.queries_made_in_partition = 0
-        self.cache = {}
-        # drop the spent window's buffers before building the new one
-        self._drop_state()
-        if rng is not None:
-            self._rng = rng
-        p = self.params
-        P = self.config.partition_num
-        S, R, C = p.set_size, p.max_query_per_chunk, p.chunk_size
+        """One hint generation; preprocessing_time is the seconds of its
+        "prep" span, which ends on a synchronize on the card."""
+        with trace.timed("prep") as span:
+            trace.count("preps")
+            self.finished_batch_num = 0
+            self.queries_made_in_partition = 0
+            self.cache = {}
+            # drop the spent window's buffers before building the new one
+            self._drop_state()
+            if rng is not None:
+                self._rng = rng
+            p = self.params
+            P = self.config.partition_num
+            S, R, C = p.set_size, p.max_query_per_chunk, p.chunk_size
 
-        # the JAX engine's draw order: replacement offsets, then one AES
-        # key per partition (pir.go:345-349)
-        repl_off = (self._rng.integers(
-            0, 2**32, size=(P, S, R), dtype=np.uint64)
-            & np.uint64(p.chunk_mask)).astype(np.uint32)
-        repl_idx = repl_off + (
-            np.arange(S, dtype=np.uint32) * C)[None, :, None]
-        keys16 = [self._rng.bytes(16) for _ in range(P)]
-        self._prep_state(aes.round_keys(keys16), repl_off, repl_idx)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._record_stats(time.perf_counter() - t0)
+            # the JAX engine's draw order: replacement offsets, then one
+            # AES key per partition (pir.go:345-349)
+            with trace.span("prep.draw"):
+                repl_off = (self._rng.integers(
+                    0, 2**32, size=(P, S, R), dtype=np.uint64)
+                    & np.uint64(p.chunk_mask)).astype(np.uint32)
+                repl_idx = repl_off + (
+                    np.arange(S, dtype=np.uint32) * C)[None, :, None]
+                keys16 = [self._rng.bytes(16) for _ in range(P)]
+            with trace.span("prep.keys"):
+                rk = aes.round_keys(keys16)
+            self._prep_state(rk, repl_off, repl_idx)
+            if self.device.type == "cuda":
+                with trace.span("prep.sync"):
+                    torch.cuda.synchronize(self.device)
+        self._record_stats(span.seconds)
 
     def dummy_preprocessing(self, rng=None):
         """Benchmark mode: zeroed hint state, fixed access pattern online."""
@@ -658,27 +686,35 @@ class DevicePianoEngine:
         idx_t = torch.from_numpy(np.asarray(idx_q, np.int32)).to(self.device)
         rnd_t = from_u32(rand_offs, self.device)
         kw = self._protocol_kw()
-        sel, qs = _pir_select(
-            st.get("table"), st["repl_idx"], carry, idx_t, rnd_t,
-            max_q=self.params.max_query_num, dpp=DEFAULT_PROGRAM_POINT,
-            route=self.kernel_route, rk=st.get("rk"), **kw)
-        # client -> server: the offset vectors, materialised on the host
-        qs_msg = to_u32(qs)
-        self.uploaded_bytes += qs_msg.nbytes
-        Q, P, _ = qs_msg.shape
-        resp = xor_scan.xor_server_scan(
-            self.db, from_u32(qs_msg, self.device), self.k)
-        # server -> client: one entry-sized parity per sub-query (the
-        # padded lanes beyond entry_u32 are structurally zero and are not
-        # part of the message, matching the reference's DBEntrySize*8)
-        E = self.config.entry_bytes // 4
-        resp_msg = to_u32(resp.reshape(Q, P, self.Ep))[:, :, :E]
-        self.downloaded_bytes += resp_msg.nbytes
-        resp_padded = np.zeros((Q, P, self.Ep), np.uint32)
-        resp_padded[:, :, :E] = resp_msg
-        _, entries, oks = _pir_finish(
-            st["repl_val"], st["backup_parity"], st.get("table"), carry, sel,
-            from_u32(resp_padded, self.device), refresh=refresh, **kw)
+        with trace.span("round"):
+            with trace.span("round.select"):
+                sel, qs = _pir_select(
+                    st.get("table"), st["repl_idx"], carry, idx_t, rnd_t,
+                    max_q=self.params.max_query_num,
+                    dpp=DEFAULT_PROGRAM_POINT, route=self.kernel_route,
+                    rk=st.get("rk"), **kw)
+            with trace.span("round.scan"):
+                # client -> server: the offset vectors, materialised on
+                # the host
+                qs_msg = to_u32(qs)
+                self.uploaded_bytes += qs_msg.nbytes
+                Q, P, _ = qs_msg.shape
+                resp = xor_scan.xor_server_scan(
+                    self.db, from_u32(qs_msg, self.device), self.k)
+                # server -> client: one entry-sized parity per sub-query
+                # (the padded lanes beyond entry_u32 are structurally zero
+                # and are not part of the message, matching the
+                # reference's DBEntrySize*8)
+                E = self.config.entry_bytes // 4
+                resp_msg = to_u32(resp.reshape(Q, P, self.Ep))[:, :, :E]
+                self.downloaded_bytes += resp_msg.nbytes
+                resp_padded = np.zeros((Q, P, self.Ep), np.uint32)
+                resp_padded[:, :, :E] = resp_msg
+            with trace.span("round.finish"):
+                _, entries, oks = _pir_finish(
+                    st["repl_val"], st["backup_parity"], st.get("table"),
+                    carry, sel, from_u32(resp_padded, self.device),
+                    refresh=refresh, **kw)
         return entries, oks
 
     def query(self, ids, retries: int | None = None) -> np.ndarray:

@@ -44,6 +44,7 @@ from pacmann_tpu_torch.pir.device_engine import (
     new_state,
 )
 from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT
+from pacmann_tpu_torch.utils import trace
 from pacmann_tpu_torch.utils.u32 import from_u32
 
 
@@ -122,15 +123,16 @@ class ShardedPianoEngine(DevicePianoEngine):
         refresh form is each shard's own (its Q * P_loc rows), as under the
         reference's shard_map."""
         entries, oks = [], []
-        for db, st, (lo, hi), dev in zip(self.db, self.shard_states,
-                                         self.partition_ranges,
-                                         self.mesh.devices):
-            e, o = self._round_on(
-                db, st, idx_q[:, lo:hi].contiguous().to(dev),
-                rnd_q[:, lo:hi].contiguous().to(dev), refresh)
-            entries.append(e.to(self.device))
-            oks.append(o.to(self.device))
-        return torch.cat(entries, dim=1), torch.cat(oks, dim=1)
+        with trace.span("round"):
+            for db, st, (lo, hi), dev in zip(self.db, self.shard_states,
+                                             self.partition_ranges,
+                                             self.mesh.devices):
+                e, o = self._round_on(
+                    db, st, idx_q[:, lo:hi].contiguous().to(dev),
+                    rnd_q[:, lo:hi].contiguous().to(dev), refresh)
+                entries.append(e.to(self.device))
+                oks.append(o.to(self.device))
+            return torch.cat(entries, dim=1), torch.cat(oks, dim=1)
 
     def consumed(self) -> int:
         return max(_consumed(st) for st in self.shard_states)
@@ -206,17 +208,22 @@ class ChunkShardedPianoEngine(DevicePianoEngine):
         st = self.state
         carry = _carry(st)
         kw = self._protocol_kw()
-        sel, qs = _pir_select(
-            st["table"], st["repl_idx"], carry, idx_q, rnd_q,
-            max_q=self.params.max_query_num, dpp=DEFAULT_PROGRAM_POINT,
-            route=self.kernel_route, **kw)
-        Q, P, _ = qs.shape
-        partials = [xor_scan.xor_server_scan(db, qs[:, :, s0:s1].to(dev),
+        with trace.span("round"):
+            with trace.span("round.select"):
+                sel, qs = _pir_select(
+                    st["table"], st["repl_idx"], carry, idx_q, rnd_q,
+                    max_q=self.params.max_query_num,
+                    dpp=DEFAULT_PROGRAM_POINT, route=self.kernel_route, **kw)
+            Q, P, _ = qs.shape
+            with trace.span("round.scan"):
+                partials = [
+                    xor_scan.xor_server_scan(db, qs[:, :, s0:s1].to(dev),
                                              self.k)
-                    for db, (s0, s1), dev in zip(self.db, self.chunk_ranges,
-                                                 self.mesh.devices)]
-        resp = xor_allreduce(partials).reshape(Q, P, self.Ep)
-        _, entries, oks = _pir_finish(
-            st["repl_val"], st["backup_parity"], st["table"], carry, sel,
-            resp, refresh=refresh, **kw)
+                    for db, (s0, s1), dev in zip(
+                        self.db, self.chunk_ranges, self.mesh.devices)]
+                resp = xor_allreduce(partials).reshape(Q, P, self.Ep)
+            with trace.span("round.finish"):
+                _, entries, oks = _pir_finish(
+                    st["repl_val"], st["backup_parity"], st["table"], carry,
+                    sel, resp, refresh=refresh, **kw)
         return entries, oks

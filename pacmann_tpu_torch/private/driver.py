@@ -9,7 +9,10 @@ The CLI wrapper lives in pacmann_tpu_torch.cli.private_search.
 The PIR engines keep their DB, and the graph build runs, on `cfg.device`
 (None: the card, raising where there is none; "cpu": the kernels' plain
 versions). Differences from the JAX driver: `profile_dir` records a
-torch.profiler trace of the query loop, whichever engine runs it; the
+torch.profiler trace of the query loop, whichever engine runs it, which
+holds the program's own spans ("pacmann.search", "pacmann.step.route",
+"pacmann.round.select", "pacmann.prep.k2", ...: utils/trace.py) around the
+operations each phase launches; the
 device-fused search draws its step randoms from its torch generator,
 reseeded per group where the JAX driver passes a seed, unless
 `step_randoms_fn` hands them in; the graph build draws from torch
@@ -172,7 +175,8 @@ def _load_or_make_inputs(cfg: PrivateSearchConfig, rng):
 def _profile(profile_dir: str, device: torch.device):
     """A torch.profiler context that writes a Chrome trace of its block
     into profile_dir (the CUDA activity too on a CUDA device), or a no-op
-    context when profile_dir is ""."""
+    context when profile_dir is "". The program's spans are on while it
+    records (utils/trace.py), so the trace carries them."""
     if not profile_dir:
         return contextlib.nullcontext()
 

@@ -33,14 +33,13 @@ from its PRNG, which torch cannot reproduce: search() takes them as
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from pacmann_tpu_torch.graph.beam import (finish_topk, first_occurrence,
                                           pop_frontier)
 from pacmann_tpu_torch.pir.device_engine import DevicePianoEngine
+from pacmann_tpu_torch.utils import trace
 from pacmann_tpu_torch.utils.u32 import as_f32, first_true, smallest_k
 
 INF = float("inf")
@@ -192,15 +191,17 @@ class FusedPrivateSearch:
         self.generator.manual_seed(0)
 
     def _refresh(self) -> float:
-        t0 = time.perf_counter()
-        if self.refresh_dummy:
-            self.engine.dummy_preprocessing()
-        else:
-            self.engine.preprocessing()
-        dt = time.perf_counter() - t0
-        self.maintenance_s += dt
+        """Regenerate the hints (zeroed ones with refresh_dummy). Returns
+        the seconds of its "search.refresh" span, which maintenance_s
+        sums."""
+        with trace.timed("search.refresh") as span:
+            if self.refresh_dummy:
+                self.engine.dummy_preprocessing()
+            else:
+                self.engine.preprocessing()
+        self.maintenance_s += span.seconds
         self.refreshes += 1
-        return dt
+        return span.seconds
 
     def _steps_fit(self, quota: int) -> int:
         """Worst-case steps the remaining budget can serve (margin matches
@@ -257,16 +258,21 @@ class FusedPrivateSearch:
         e = self.engine
         P = e.config.partition_num
         for g in range(lo, hi):
-            (fid, known, is_first, keep, slot, fo_idx, has_first,
-             idx_q) = _route_core(
-                *beam, rand_all[g], psize=e.config.partition_size, m=self.m,
-                P=P, parallel=parallel, quota=quota, n=self.n)
-            entries, oks = e._round(idx_q, rnd_all[g])
-            _update_core(
-                beam, stats, queries_d, entries, oks,
-                (fid, known, is_first, keep, slot, fo_idx, has_first), g,
-                dim=self.dim, m=self.m, k=e.k, P=P, parallel=parallel,
-                quota=quota)
+            with trace.span("step"):
+                trace.count("steps")
+                with trace.span("step.route"):
+                    (fid, known, is_first, keep, slot, fo_idx, has_first,
+                     idx_q) = _route_core(
+                        *beam, rand_all[g], psize=e.config.partition_size,
+                        m=self.m, P=P, parallel=parallel, quota=quota,
+                        n=self.n)
+                entries, oks = e._round(idx_q, rnd_all[g])
+                with trace.span("step.update"):
+                    _update_core(
+                        beam, stats, queries_d, entries, oks,
+                        (fid, known, is_first, keep, slot, fo_idx,
+                         has_first), g, dim=self.dim, m=self.m, k=e.k, P=P,
+                        parallel=parallel, quota=quota)
 
     def search(self, queries: np.ndarray, k: int, max_step: int,
                parallel: int, step_randoms=None, return_steps: bool = False):
@@ -287,54 +293,65 @@ class FusedPrivateSearch:
             raise ValueError("group too small: need Qn*parallel*m >= P")
         seg_lens = self.segment_plan(max_step, quota, use_leftover=True)
 
-        cap = parallel + max_step * parallel * self.m
-        queries_d = torch.as_tensor(np.asarray(queries, np.float32),
-                                    device=dev)
-        beam = _seed_beam(queries_d, self.start_ids, self.start_vecs,
-                          self.start_nbrs, parallel=parallel, cap=cap,
-                          m=self.m)
-        if step_randoms is None:
-            rand_all, rnd_all = draw_step_randoms(
-                self.generator, max_step=max_step, Qn=Qn, parallel=parallel,
-                m=self.m, n=self.n, quota=quota, P=P, S=p.set_size,
-                C=p.chunk_size, device=dev)
-        else:
-            rand_all, rnd_all = (
-                (a if isinstance(a, torch.Tensor)
-                 else torch.from_numpy(np.asarray(a).astype(np.int32)))
-                .to(device=dev, dtype=torch.int32) for a in step_randoms)
+        with trace.span("search"):
+            cap = parallel + max_step * parallel * self.m
+            with trace.span("search.seed"):
+                queries_d = torch.as_tensor(np.asarray(queries, np.float32),
+                                            device=dev)
+                beam = _seed_beam(queries_d, self.start_ids, self.start_vecs,
+                                  self.start_nbrs, parallel=parallel,
+                                  cap=cap, m=self.m)
+            with trace.span("search.draw"):
+                if step_randoms is None:
+                    rand_all, rnd_all = draw_step_randoms(
+                        self.generator, max_step=max_step, Qn=Qn,
+                        parallel=parallel, m=self.m, n=self.n, quota=quota,
+                        P=P, S=p.set_size, C=p.chunk_size, device=dev)
+                else:
+                    rand_all, rnd_all = (
+                        (a if isinstance(a, torch.Tensor)
+                         else torch.from_numpy(np.asarray(a).astype(np.int32)))
+                        .to(device=dev, dtype=torch.int32)
+                        for a in step_randoms)
 
-        stats = torch.zeros(3, dtype=torch.int64, device=dev)
-        self.last_maintenance_s = 0.0
-        base = 0
-        for seg in seg_lens:
-            need = seg * quota
-            # refresh when the worst-case budget cannot cover this segment
-            # (private-search.go:224-230's proactive margin); the estimate
-            # is corrected to the device-measured truth after the search
-            if (not e.prepared or e.queries_made_in_partition + need + 10
-                    >= p.max_query_num):
-                if dev.type == "cuda":
-                    # finish the queued steps before the refresh timer starts
-                    torch.cuda.synchronize(dev)
-                self.last_maintenance_s += self._refresh()
-            self.run_steps(beam, stats, queries_d, rand_all, rnd_all,
-                           base, base + seg, parallel=parallel, quota=quota)
-            # budget bookkeeping mirrors engine.query (batch-pir.go:239-245)
-            e.queries_made_in_partition += need
-            e.finished_batch_num += seg * (F // e.config.batch_size)
-            base += seg
+            stats = torch.zeros(3, dtype=torch.int64, device=dev)
+            self.last_maintenance_s = 0.0
+            base = 0
+            for seg in seg_lens:
+                need = seg * quota
+                # refresh when the worst-case budget cannot cover this
+                # segment (private-search.go:224-230's proactive margin);
+                # the estimate is corrected to the device-measured truth
+                # after the search
+                if (not e.prepared or e.queries_made_in_partition + need + 10
+                        >= p.max_query_num):
+                    if dev.type == "cuda":
+                        # finish the queued steps before the refresh timer
+                        # starts
+                        with trace.span("search.sync"):
+                            torch.cuda.synchronize(dev)
+                    self.last_maintenance_s += self._refresh()
+                self.run_steps(beam, stats, queries_d, rand_all, rnd_all,
+                               base, base + seg, parallel=parallel,
+                               quota=quota)
+                # budget bookkeeping mirrors engine.query
+                # (batch-pir.go:239-245)
+                e.queries_made_in_partition += need
+                e.finished_batch_num += seg * (F // e.config.batch_size)
+                base += seg
 
-        out_ids, out_steps = finish_topk(beam[0], beam[1], topk=k,
-                                         parallel=parallel, m=self.m)
-        # dedup'd and dummy rows never spend budget: resync the estimate to
-        # the measured consumption (max of served and backup burn)
-        e.queries_made_in_partition = e.consumed()
-        self.fetch_stats += stats.cpu().numpy()
-        out_np = out_ids.cpu().numpy().astype(np.int64)
-        if return_steps:
-            return out_np, out_steps.cpu().numpy().astype(np.int64)
-        return out_np
+            with trace.span("search.finish"):
+                out_ids, out_steps = finish_topk(beam[0], beam[1], topk=k,
+                                                 parallel=parallel, m=self.m)
+                # dedup'd and dummy rows never spend budget: resync the
+                # estimate to the measured consumption (max of served and
+                # backup burn)
+                e.queries_made_in_partition = e.consumed()
+                self.fetch_stats += stats.cpu().numpy()
+                out_np = out_ids.cpu().numpy().astype(np.int64)
+                if return_steps:
+                    return out_np, out_steps.cpu().numpy().astype(np.int64)
+                return out_np
 
     def budget_left(self) -> int:
         """Sub-queries a partition may still make in this hint window."""

@@ -1,0 +1,307 @@
+"""The port's tracing (pacmann_tpu_torch/utils/trace.py) on the CPU: off it
+records nothing, reads no clock but its two timed spans' and never opens a
+record_function; on (enabled() or an active torch.profiler) its spans nest
+by parent and request, sit in the profiler's trace around the operations
+of their phase, and change no answer and no state; the sync counters count
+their sites."""
+
+import contextlib
+import json
+
+import numpy as np
+import pytest
+import torch
+from torch.overrides import TorchFunctionMode
+from torch.profiler import ProfilerActivity, profile
+
+from pacmann_tpu_torch.pir import device_engine
+from pacmann_tpu_torch.pir.convert import state_to_numpy
+from pacmann_tpu_torch.pir.device_engine import DevicePianoEngine
+from pacmann_tpu_torch.private.fused_search import FusedPrivateSearch
+from pacmann_tpu_torch.utils import trace
+
+torch.set_num_threads(1)
+
+N, D, M = 1024, 8, 8
+
+
+def _search(seed=5, prepared=True):
+    """A tiny engine on the CPU and its fused search; unprepared, its first
+    search refreshes before its first step."""
+    rng = np.random.default_rng(seed)
+    vectors = rng.integers(0, 8, size=(N, D)).astype(np.float32)
+    graph = rng.integers(0, N, size=(N, M))
+    raw = np.concatenate([vectors.view(np.uint32),
+                          graph.astype(np.uint32)], axis=1)
+    e = DevicePianoEngine(N, 4 * (D + M), M, raw, 8, device="cpu")
+    if prepared:
+        e.preprocessing(rng=np.random.default_rng(seed + 1))
+    sids = rng.choice(N, 32, replace=False)
+    fs = FusedPrivateSearch(e, sids, vectors[sids], graph[sids], dim=D, m=M,
+                            n=N)
+    return fs, rng.integers(0, 8, size=(2, D)).astype(np.float32)
+
+
+def _run(fs, queries, max_step=6):
+    fs.generator.manual_seed(3)
+    return fs.search(queries, k=5, max_step=max_step, parallel=2)
+
+
+class _NoClock:
+    def perf_counter_ns(self):
+        raise AssertionError("the clock was read while tracing is off")
+
+
+def _no_record_function(name):
+    raise AssertionError(f"record_function({name!r}) while tracing is off")
+
+
+def test_off_is_a_shared_no_op(monkeypatch):
+    with trace.enabled():
+        pass
+    monkeypatch.setattr(trace, "time", _NoClock())
+    monkeypatch.setattr(trace, "record_function", _no_record_function)
+    assert trace.span("a") is trace.span("b")
+    with trace.span("search"):
+        with trace.span("step"):
+            trace.count("steps")
+    assert trace.read() == ([], {})
+
+
+def test_off_search_reads_the_clock_in_its_timed_spans_alone(monkeypatch):
+    """A search that refreshes twice, tracing off: two clock reads a timed
+    span (its prep and its refresh), none elsewhere, no record_function,
+    no record."""
+    fs, q = _search(prepared=False)
+    reads = []
+
+    class Clock:
+        def perf_counter_ns(self):
+            reads.append(1)
+            return len(reads) * 1000
+
+    with trace.enabled():
+        pass
+    monkeypatch.setattr(trace, "time", Clock())
+    monkeypatch.setattr(trace, "record_function", _no_record_function)
+    per = (fs.engine.params.max_query_num - 2) // (2 * 2 * M // fs.engine
+                                                   .config.partition_num)
+    _run(fs, q, max_step=per + 1)
+    assert fs.refreshes == 2
+    preps = fs.refreshes
+    assert len(reads) == 2 * (preps + fs.refreshes)
+    assert trace.read() == ([], {})
+    assert fs.maintenance_s > 0 and fs.engine.preprocessing_time > 0
+
+
+def test_enabled_resets_and_nests():
+    with trace.enabled():
+        trace.count("x", 3)
+        with trace.span("round"):
+            pass
+    assert trace.read().counters == {"x": 3}
+    with trace.enabled():
+        with trace.span("search"):
+            with trace.span("step"):
+                trace.count("steps")
+                trace.count("steps")
+                with trace.timed("prep"):
+                    pass
+        with trace.span("prep"):
+            with trace.span("prep.k1"):
+                pass
+        with trace.span("round"):
+            pass
+    rec = trace.read()
+    assert rec.counters == {"steps": 2}
+    by = {s.name: s for s in rec.spans}
+    assert [s.name for s in rec.spans] == ["prep", "step", "search",
+                                           "prep.k1", "prep", "round"]
+    search, step = by["search"], by["step"]
+    inner_prep, outer_prep = rec.spans[0], rec.spans[4]
+    assert search.parent is None and search.request == search.id
+    assert step.parent == search.id and step.request == search.id
+    assert inner_prep.parent == step.id and inner_prep.request == search.id
+    assert outer_prep.request == outer_prep.id
+    assert by["prep.k1"].parent == outer_prep.id
+    assert by["prep.k1"].request == outer_prep.id
+    assert by["round"].parent is None and by["round"].request is None
+    assert len({s.id for s in rec.spans}) == len(rec.spans)
+    for s in rec.spans:
+        assert s.start_ns <= s.end_ns
+    assert search.start_ns <= step.start_ns <= step.end_ns <= search.end_ns
+
+
+def test_a_profiled_search_keeps_nothing_in_memory():
+    """Under a profiler alone the spans are annotations of its trace, and
+    neither a span record nor a counter is kept."""
+    fs, q = _search(prepared=False)
+    with trace.enabled():
+        trace.count("x")
+    with trace.enabled():
+        pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _run(fs, q, max_step=3)
+    assert trace.read() == ([], {})
+    assert trace._open == []
+    names = {e.name for e in prof.events()}
+    assert {"pacmann.search", "pacmann.round", "pacmann.prep"} <= names
+
+
+def test_the_profiler_flag_turns_tracing_on():
+    """torch's private flag, which the tracing reads, flips under
+    torch.profiler.profile, and spans are live while it is set."""
+    flag = torch.autograd.profiler
+    assert not flag._is_profiler_enabled
+    assert trace.span("a") is trace.span("a")
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert flag._is_profiler_enabled
+        assert trace.span("a") is not trace.span("a")
+    assert not flag._is_profiler_enabled
+    assert trace.span("a") is trace.span("a")
+
+
+@pytest.fixture(scope="module")
+def profiled(tmp_path_factory):
+    """A tiny search (one refresh inside it) under torch.profiler and
+    enabled(): its chrome trace's host events and the tracing's own
+    records."""
+    fs, q = _search(prepared=False)
+    with trace.enabled(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        _run(fs, q, max_step=3)
+    path = tmp_path_factory.mktemp("trace") / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    return events, trace.read()
+
+
+@pytest.mark.parametrize("name,parent,op", [
+    ("search", None, "aten::copy_"),
+    ("search.seed", "search", "aten::sum"),
+    ("search.draw", "search", "aten::randint"),
+    ("search.refresh", "search", None),
+    ("prep", "search.refresh", None),
+    ("prep.draw", "prep", None),
+    ("prep.keys", "prep", None),
+    ("prep.upload", "prep", "aten::copy_"),
+    ("prep.k1", "prep", None),
+    ("prep.k2", "prep", "aten::bitwise_xor_"),
+    ("prep.repl", "prep", "aten::index"),
+    ("prep.state", "prep", "aten::repeat"),
+    ("step", "search", None),
+    ("step.route", "step", "aten::cumsum"),
+    ("round", "step", None),
+    ("round.select", "round", "aten::cumsum"),
+    ("round.claim", "round.select", "aten::argmax"),
+    ("round.scan", "round", "aten::bitwise_xor_"),
+    ("round.finish", "round", "aten::nonzero"),
+    ("step.update", "step", "aten::repeat_interleave"),
+    ("search.finish", "search", "aten::sort"),
+])
+def test_spans_are_annotations_around_their_phase(profiled, name, parent,
+                                                  op):
+    """Each span is a user_annotation pacmann.<name> inside its parent's,
+    as many as the records hold, and holds op (an operation of its phase)
+    where one is given."""
+    events, rec = profiled
+    ann = [e for e in events if e.get("cat") == "user_annotation"]
+    mine = [e for e in ann if e["name"] == trace.PREFIX + name]
+    assert mine and len(mine) == sum(s.name == name for s in rec.spans)
+
+    def inside(e, outer):
+        return (outer["ts"] <= e["ts"]
+                and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"])
+
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    for e in mine:
+        if op is not None:
+            assert op in {o["name"] for o in ops if inside(o, e)}
+        if parent is not None:
+            assert any(inside(e, o) for o in ann
+                       if o["name"] == trace.PREFIX + parent)
+
+
+def _state(fs):
+    return {k: v.copy() for k, v in state_to_numpy(fs.engine.state).items()}
+
+
+@pytest.mark.parametrize("what", ("search", "prep"))
+def test_tracing_changes_no_answer_and_no_state(what):
+    out = []
+    for on in (False, True):
+        fs, q = _search(prepared=what == "search")
+        with trace.enabled() if on else contextlib.nullcontext():
+            if what == "search":
+                ans = _run(fs, q)
+            else:
+                fs.engine.preprocessing(rng=np.random.default_rng(9))
+                ans = None
+        out.append((ans, _state(fs), fs.fetch_stats.copy()))
+    (a0, s0, f0), (a1, s1, f1) = out
+    assert (a0 is None and a1 is None) or np.array_equal(a0, a1)
+    assert np.array_equal(f0, f1) and s0.keys() == s1.keys()
+    for key in s0:
+        assert np.array_equal(s0[key], s1[key]), key
+
+
+@pytest.mark.parametrize("form,per_round", (("scatter", 6), ("dense", 0)))
+def test_sync_counters_count_their_sites(monkeypatch, form, per_round):
+    """sync.refresh_mask: one a boolean-mask read of the refresh (each
+    seen by a TorchFunctionMode around _pir_finish), six a scatter round
+    (one round a step), none on the dense form; sync.claim: one a pass of
+    the claim fixpoint (its bool())."""
+    monkeypatch.setenv("PACMANN_REFRESH_ROUTE", form)
+    passes, reads = [], []
+
+    def counted(x):
+        passes.append(1)
+        return bool(x)
+
+    class MaskReads(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if (func is torch.Tensor.__getitem__
+                    and isinstance(args[1], torch.Tensor)
+                    and args[1].dtype == torch.bool):
+                reads.append(1)
+            return func(*args, **(kwargs or {}))
+
+    finish = device_engine._pir_finish
+
+    def watched(*args, **kwargs):
+        with MaskReads():
+            return finish(*args, **kwargs)
+
+    monkeypatch.setattr(device_engine, "bool", counted, raising=False)
+    monkeypatch.setattr(device_engine, "_pir_finish", watched)
+    fs, q = _search()
+    with trace.enabled():
+        _run(fs, q)
+    rec = trace.read()
+    c = rec.counters
+    rounds = sum(s.name == "round" for s in rec.spans)
+    assert c["steps"] == rounds == 6
+    assert c.get("sync.refresh_mask", 0) == len(reads) == per_round * rounds
+    assert c["sync.claim"] == len(passes) >= rounds
+
+
+def test_timed_spans_are_the_engine_and_search_times():
+    """preprocessing_time is its prep span's length and maintenance_s the
+    sum of the search's refresh spans; last_maintenance_s is the last
+    search's share."""
+    fs, q = _search(prepared=False)
+    per = (fs.engine.params.max_query_num - 2) // (2 * 2 * M // fs.engine
+                                                   .config.partition_num)
+    with trace.enabled():
+        _run(fs, q, max_step=per + 1)
+    rec = trace.read()
+    preps = [s for s in rec.spans if s.name == "prep"]
+    refreshes = [s for s in rec.spans if s.name == "search.refresh"]
+    assert len(preps) == len(refreshes) == fs.refreshes == 2
+    assert fs.engine.preprocessing_time == pytest.approx(
+        (preps[-1].end_ns - preps[-1].start_ns) * 1e-9, abs=1e-12)
+    spans_s = sum((s.end_ns - s.start_ns) * 1e-9 for s in refreshes)
+    assert fs.maintenance_s == pytest.approx(spans_s, abs=1e-9)
+    assert fs.last_maintenance_s == pytest.approx(fs.maintenance_s)
+    fs.ensure_budget(per + 1, 2, 2, min_steps=per + 1)
+    assert fs.refreshes == 3 and fs.maintenance_s > spans_s
