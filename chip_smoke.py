@@ -35,16 +35,18 @@ queries). Phases, in order:
      -1 or S, offset -1 on rows holding a few -1s, Hp % 4 = 0 and 3); K3
      also at a synthetic S = 8,192 whose shared-memory plan passes 48 KiB
      (opted in, a cluster of 8);
-     K2 (xor_gather) in both its forms
-     (chunk-major and row-split) at the prep, Q = 6, 96 and the private
-     driver's quotas (48),
+     K2 (xor_gather) in each of its forms
+     (chunk-major, row-split and sliced) at the prep, Q = 6, 96 and the
+     private driver's quotas (48),
      at B = 16C - 1 and 16C (the two sides of gather_form's switch), at
      a ragged shape (S = 13, k = 3, B = 5,000, all-skip rows) and, row
-     form only, at the 5M pin's prep (C = 2,048); K6 (l2_distance) at
-     1,000 x 1M x 128, at the blocks the plaintext paths launch, at
-     (1,000, 4,099) x D = 37 and on rows off 16-byte alignment, bit-equal
-     on integer data and within 1e-5 (|q|^2 + |p|^2) on floats (its plain
-     version is the cuBLAS form). The repair pins: K2 at k = 5 and 8
+     and sliced forms only (C above the chunk form's), at the 5M pin's
+     prep (C = 2,048), the SIFT100M shard's (4, 179,584, 764), C =
+     8,192, and on edge inputs at k = 1, 3 and 5 (compare_k2_sliced); K6
+     (l2_distance) at 1,000 x 1M x 128, at the blocks the plaintext paths
+     launch, at (1,000, 4,099) x D = 37 and on rows off 16-byte alignment,
+     bit-equal on integer data and within 1e-5 (|q|^2 + |p|^2) on floats
+     (its plain version is the cuBLAS form). The repair pins: K2 at k = 5 and 8
      (entries over 2 KiB) at the prep and Q = 96 shapes, and K3/K4 at
      (P, S, Hp) = (16, 216, 14,336) (n = 7M) at Q = 6, 96 and the pin's
      whole budget, max_query_num rounds a partition. The attic phase: one
@@ -240,6 +242,8 @@ KERNELS = ("aes_mmo_tables", "xor_gather", "claim_select", "select_full",
 # (S = 216)
 WIDE_ENTRY_BYTES = 3968
 BIG_N, PROTOCOL_PIN_N = 5_000_000, 7_000_000
+# the benchmark's sift100m_shard4: one card's 4 of SIFT100M's 16 partitions
+SHARD4_N, SHARD4_BATCH = 25_000_000, 8
 # K7c's flat single-server layout: n = 1M entries of 640 B in one
 # partition (C = 2,048, S = 492, B = T = 57,632)
 FLAT_S, FLAT_C, FLAT_B = 492, 2048, 57_632
@@ -547,11 +551,11 @@ def gather_bound(off, skip, C: int, k: int) -> tuple[dict, int]:
 
 def k2_forms(db, o, k: int, label: str, reps: int, plain_reps: int,
              graph: bool = False) -> dict:
-    """Both K2 forms (chunk-major and row-split) against the plain version
-    at one input, bit-equal; both timed with CUDA events beside the bound.
-    `ms` is the time of the form gather_form picks, the one the paths
-    launch; `graph` adds its time replayed from a CUDA graph (the device's
-    time without the host's per-call gap)."""
+    """K2's forms (chunk-major, row-split and sliced) against the plain
+    version at one input, bit-equal; each timed with CUDA events beside
+    the bound. `ms` is the time of the form gather_form picks, the one the
+    paths launch; `graph` adds its time replayed from a CUDA graph (the
+    device's time without the host's per-call gap)."""
     import torch
 
     from pacmann_tpu_torch.ops import xor_scan
@@ -560,9 +564,10 @@ def k2_forms(db, o, k: int, label: str, reps: int, plain_reps: int,
     C, B = CK // k, o.shape[1]
     form = xor_scan.gather_form(P, B, S, C, k)
     warps = xor_scan.row_split_warps(P, B, S, k)
-    # the chunk-major ring holds C <= CHUNK_MAJOR_MAX_C rows (the 5M
-    # prep's C = 2,048 takes the row form alone)
-    forms = ("chunk", "row") if C <= xor_scan.CHUNK_MAJOR_MAX_C else ("row",)
+    # the chunk-major ring holds C <= CHUNK_MAJOR_MAX_C rows (above, the
+    # row and sliced forms alone)
+    forms = (("chunk",) if C <= xor_scan.CHUNK_MAJOR_MAX_C else ()) + (
+        "row", "sliced")
     b, rows = gather_bound(o, None, C, k)
     want = xor_scan.xor_gather_plain(db, o, k)
     err = 0
@@ -582,7 +587,7 @@ def k2_forms(db, o, k: int, label: str, reps: int, plain_reps: int,
                        plain_reps)
     res = dict(max_abs_err=err, form=form, row_warps=warps, ms=times[form],
                chunk_ms=times.get("chunk"), row_ms=times["row"],
-               plain_ms=plain_ms, **b)
+               sliced_ms=times["sliced"], plain_ms=plain_ms, **b)
     note = ""
     if graph:
         res["graph_ms"] = graph_ms(
@@ -591,10 +596,11 @@ def k2_forms(db, o, k: int, label: str, reps: int, plain_reps: int,
     gb = o.numel() * k * 512 / 1e9            # entries gathered (upper bound)
     chunk = f"{times['chunk']:.4f}" if "chunk" in times else "(C too large)"
     print(f"K2 xor_gather k={k} {label} offsets {tuple(o.shape)} C={C}: "
-          f"{' and '.join(forms)} form bit-equal to plain; {form} form "
+          f"{', '.join(forms)} forms bit-equal to plain; {form} form "
           f"{times[form]:.4f} ms{note} ({gb / times[form] * 1e3:.1f} GB/s of "
           f"gathered entries), chunk {chunk} / row (W={warps}) "
-          f"{times['row']:.4f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"{times['row']:.4f} / sliced {times['sliced']:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']}, {rows} distinct entries)")
     return res
 
@@ -648,31 +654,37 @@ def compare_k2_ragged(seed: int) -> dict:
     return k2_forms(db, off, k, "ragged", reps=20, plain_reps=2)
 
 
-def compare_k2_prep(rk, seed: int, n: int, entry_bytes: int,
-                    label: str) -> tuple[dict, dict]:
+def compare_k2_prep(rk, seed: int, n: int, entry_bytes: int, label: str,
+                    batch: int = BATCH,
+                    check_k1: bool = True) -> tuple[dict, dict | None]:
     """K1 and K2 at the prep shape of an engine of n entries of
-    entry_bytes, batch 32: the 5M pin's (640 B: P = 16, T = 35,552, S =
-    156, C = 2,048, 5.23 GB) and bench's BIG deployment's (3,201,821 x
-    896 B: T = 24,416, S = 196, C = 1,024, 3.29 GB). K1's table of those
-    parameters against its plain version, then K2 on it with the engine's
-    skip mask, on a random DB of that shape. Returns (K2's, K1's
-    results)."""
+    entry_bytes, batch 32 unless `batch` says otherwise: the 5M pin's (640
+    B: P = 16, T = 35,552, S = 156, C = 2,048, 5.23 GB), bench's BIG
+    deployment's (3,201,821 x 896 B: T = 24,416, S = 196, C = 1,024, 3.29
+    GB) and the SIFT100M shard's (25M x 640 B, batch 8: P = 4, T =
+    179,584, S = 764, C = 8,192, 25.6 GB). K1's table of those parameters
+    (held against its plain version where check_k1), then K2 on it with
+    the engine's skip mask, on a random DB of that shape. Returns (K2's,
+    K1's results or None)."""
     import torch
 
-    from pacmann_tpu_torch.ops import xor_scan
+    from pacmann_tpu_torch.ops import aes, xor_scan
     from pacmann_tpu_torch.pir import layout
     from pacmann_tpu_torch.pir.device_engine import _build_skip
     from pacmann_tpu_torch.pir.params import (derive_batch_params,
                                               derive_piano_params)
 
-    c = derive_batch_params(n, entry_bytes, BATCH, FAIL)
+    c = derive_batch_params(n, entry_bytes, batch, FAIL)
     p = derive_piano_params(c.partition_size, entry_bytes, FAIL)
     S, Hp, R, C = (p.set_size, p.primary_hint_num, p.max_query_per_chunk,
                    p.chunk_size)
     T, P = Hp + S * R, c.partition_num
     k = layout.entry_rows(entry_bytes // 4)
-    k1, table = k1_check(rk, T, S, p.chunk_mask, label, reps=5,
-                         plain_reps=1)
+    if check_k1:
+        k1, table = k1_check(rk[:P], T, S, p.chunk_mask, label, reps=5,
+                             plain_reps=1)
+    else:
+        k1, table = None, aes.aes_mmo_cuda(rk[:P], T, S, p.chunk_mask)
     off = torch.where(_build_skip(P, T, Hp, R, S, "cuda"), xor_scan.SKIP,
                       table).contiguous()
     del table
@@ -684,6 +696,39 @@ def compare_k2_prep(rk, seed: int, n: int, entry_bytes: int,
     del db, off
     torch.cuda.empty_cache()
     return res, k1
+
+
+def compare_k2_sliced(rk, seed: int) -> dict:
+    """K2's sliced form where no other phase takes it: the SIFT100M
+    shard's prep (its K1 table, the skip mask), and edge inputs at k = 1,
+    3 and 5 and C above the chunk form's: S of 13 and 37 (no multiple of
+    the 8-chunk run), B of 777, 1,000 and 5,000 (no multiple of the 256
+    hints of a CTA), a quarter of the offsets -1, a twentieth C or 2^30,
+    and four rows that skip every chunk. Each form against the plain
+    version (k2_forms)."""
+    import torch
+
+    res = {}
+    res["shard"], _ = compare_k2_prep(rk, seed, SHARD4_N, ENTRY_BYTES,
+                                      "SIFT100M shard4 prep",
+                                      batch=SHARD4_BATCH, check_k1=False)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for S, P, C, k, B in ((13, 16, 600, 1, 1000), (37, 4, 1024, 3, 5000),
+                          (13, 3, 520, 5, 777)):
+        db = torch.empty((S, P, C * k, 128), dtype=torch.int32,
+                         device="cuda").random_(-2**31, 2**31, generator=gen)
+        off = torch.randint(0, C, (P, B, S), generator=gen,
+                            dtype=torch.int32, device="cuda")
+        for frac, value in ((0.25, -1), (0.05, C), (0.05, 1 << 30)):
+            off[torch.rand((P, B, S), generator=gen, device="cuda")
+                < frac] = value
+        off[:, :4] = -1
+        res[f"k={k}"] = k2_forms(db, off, k, f"edge k={k} S={S} B={B}",
+                                 reps=10, plain_reps=1)
+        del db, off
+    torch.cuda.empty_cache()
+    return res
 
 
 def compare_k2_wide(table, skip, C: int, seed: int) -> dict:
@@ -4013,6 +4058,7 @@ def main() -> int:
     k2_ragged = compare_k2_ragged(args.seed + 23)
     k2_5m, k1_5m = compare_k2_prep(k1_rk, args.seed + 24, BIG_N,
                                    ENTRY_BYTES, "5M prep")
+    k2_sliced = compare_k2_sliced(k1_rk, args.seed + 25)
     c7 = derive_batch_params(PROTOCOL_PIN_N, ENTRY_BYTES, BATCH, FAIL)
     p7 = derive_piano_params(c7.partition_size, ENTRY_BYTES, FAIL)
     table7 = aes.aes_mmo_cuda(
@@ -4161,6 +4207,7 @@ def main() -> int:
 
     details = dict(card=card, k1=k1, k1_ragged=k1_ragged, k1_5m=k1_5m,
                    k2=k2, k2_wide=k2_wide, k2_ragged=k2_ragged, k2_5m=k2_5m,
+                   k2_sliced=k2_sliced,
                    k3_k4=k34, k3_k4_hp14336=k34_wide, k3_k4_wide_s=k3_wide,
                    k4_edge=k4_edge,
                    k5=k5, k6=k6, k7=k7, paths=paths, host_engines=host,
@@ -4198,7 +4245,7 @@ def main() -> int:
               max(v["max_abs_err"] for v in (
                   *k2.values(), *k2_wide["k=5"].values(),
                   *k2_wide["k=8"].values(), k2_ragged, k2_5m,
-                  shard["k2"], bench_res["k2_big"])),
+                  *k2_sliced.values(), shard["k2"], bench_res["k2_big"])),
               k2["prep"], k2["prep"]),
         entry("claim_select", "protocol.cu",
               "pacmann_tpu/ops/protocol_kernels.py:119",

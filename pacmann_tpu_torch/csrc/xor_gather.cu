@@ -5,7 +5,7 @@
 // xor_hintgen_mm): out[p, b] = XOR_s db4[s, p, off[p, b, s]], where an entry
 // is k rows of 128 u32 and an offset outside [0, C) is a skip (contributes
 // zero). It serves offline hint generation (B = T hints per partition) and
-// the online server scan (B = Q sub-queries per partition), in two forms
+// the online server scan (B = Q sub-queries per partition), in three forms
 // that ops/xor_scan.py::gather_form chooses between by shape:
 //
 //   chunk-major (B >= 16C and C <= 512, hint generation): staged_kernel
@@ -17,6 +17,42 @@
 //     slice (16 x 99 MB), and the gather happens in shared memory: one
 //     16-byte read per (hint, chunk, 16 B of entry), a quarter-warp
 //     reading two random 64-byte rows (1.5 wavefronts on average).
+//   sliced (B >= 2C and C > 512, hint generation whose chunks the chunk
+//     form's ring cannot hold): sliced_row_split_kernel (below). A CTA owns
+//     one partition, one 128-byte column slice of the entries (one cache
+//     line of a 512-byte row; 4k slices an entry) and 256 hints: 8 lanes of
+//     16 bytes a hint, 8 hints a thread, each hint's XOR in registers. The
+//     grid is (hint block, partition, slice), so the CTAs resident together
+//     gather one (partition, slice) of every chunk, walking the chunks in
+//     the same order: 4 CTAs an SM (64 registers, no spill), 135,168 hints
+//     on the card, 75 % of a partition's T = 179,584 at the SIFT100M
+//     shard's prep (P = 4, S = 764, C = 8,192, k = 2). A chunk's slice is
+//     C x 128 B = 1 MB, so the lines the hints of a wave name come from HBM
+//     about once and from L2 to the other ~21 hints that name them. Bound
+//     on the H100 at that shape: gather_bound 8.53 ms (each named entry
+//     read once); the kernel reads ~75 GB from HBM (the DB's slices about
+//     2.3 times, once for each wave that covers a (partition, slice), the
+//     offsets once a slice: 8 x 2.2 GB, the 0.74 GB out), ~22 ms at
+//     3.35 TB/s, but moves 4 x 179,584 x 764 x 1 KB = 562 GB of gathered
+//     lines from L2 to the SMs: L2's rate sets its time. On an H100 (700
+//     W; uniform DB, K1's table with the skip mask): the shard's prep 78.5
+//     ms (7.16 TB/s of gathered lines; the row form 177.8, 3.16 TB/s from
+//     HBM), bench's BIG prep (16, 24,416, 196), C = 1,024: 7.86 (row
+//     19.41), the 5M prep (16, 35,552, 156), C = 2,048: 10.25 (row 25.68).
+//     At uniform offsets it is 3-18 % faster than the row form at B = C
+//     and 33-34 % at 2C (C = 8,192 and 1,024), hence the switch at 2C; at
+//     C = 512 it beat the chunk form (2.20 against 2.72 ms at 24C), which
+//     gather_form still takes there. Tried, shard / BIG / 5M in ms: 12
+//     hints a thread with 2 CTAs an SM (126 registers) 202 / 20.7 / 27.5,
+//     16 with 2 166.8 / 20.5 / 26.2, 8 with 3 126.9 / 12.5 / 17.1: below
+//     32 warps an SM too few gathers are in flight. The offsets loaded one
+//     run ahead (16 more registers): 8 with 4 92.0 / 10.9 / 14.3; without,
+//     those registers carry gathers: 78.5 / 7.86 / 10.25, and 9 with 4
+//     79.6, 6 with 5 81.3, 5 with 6 82.8 at the shard. 4 hints with 8
+//     CTAs, 6 with 6, 20 in 512-thread CTAs and a 32-bit entry index
+//     spill, and lose (96-346 ms); the DB's lines by ld.global.cg, the
+//     offsets by ld.global.cs, and an L2 evict_last policy on the DB's
+//     lines each moved the shard's time by 3 % or less.
 //   row-split (few rows per partition, the server scan): W warps share an
 //     output row (and group of at most 4 of its 128-word rows), warp w
 //     walking chunks w*8.., (w+W)*8.., and the W partial sums are XORed in
@@ -252,6 +288,71 @@ __device__ __forceinline__ void xor_into(uint4& acc, const uint4 v) {
   acc.y ^= v.y;
   acc.z ^= v.z;
   acc.w ^= v.w;
+}
+
+// K2, sliced form: CTA (hint block, partition p, column slice c) of
+// kSlThreads threads; lane t % kSlLanes of thread t owns 16 bytes of the
+// slice's 128 (uint4 c * kSlLanes + t % kSlLanes of an entry), for the
+// hints i * kSlSlots + t / kSlLanes of the block, i < kSlHints. At each run
+// of kSlLanes chunks the lanes of a hint load one offset each (lane j:
+// chunk s0 + j, -1 past S or the block), and each chunk's offset is
+// shuffled to the hint's lanes; every hint's XOR sits in registers. db,
+// offsets and out as in gather_kernel, k at run time.
+constexpr int kSlThreads = 256;   // threads per CTA (sliced form)
+constexpr int kSlLanes = 8;       // lanes a hint: 8 x 16 B, one 128-B line
+constexpr int kSlHints = 8;       // hints (uint4 accumulators) a thread
+constexpr int kSlMinBlocks = 4;   // CTAs an SM: 64 registers a thread
+constexpr int kSlSlots = kSlThreads / kSlLanes;   // hints a slot
+constexpr int kSlBlock = kSlSlots * kSlHints;     // hints a CTA
+
+__global__ void __launch_bounds__(kSlThreads, kSlMinBlocks)
+    sliced_row_split_kernel(const uint4* __restrict__ db,
+                            const int32_t* __restrict__ offsets,
+                            uint4* __restrict__ out, int S, int P, int C,
+                            int B, int k, int hb) {
+  const int b0 = blockIdx.x * hb, p = blockIdx.y, c = blockIdx.z;
+  const int nb = min(hb, B - b0);
+  if (nb <= 0) return;
+  const int lane = threadIdx.x % kSlLanes, slot = threadIdx.x / kSlLanes;
+  // the warp lane that holds chunk s0 + u's offset of this thread's hints
+  const int src = threadIdx.x & 31 & ~(kSlLanes - 1);
+  const int e = k * 32;   // uint4 an entry
+  const size_t s_stride = static_cast<size_t>(P) * C * e;
+  const uint4* base = db + static_cast<size_t>(p) * C * e + c * kSlLanes +
+                      lane;
+  const int32_t* off0 =
+      offsets + (static_cast<size_t>(p) * B + b0) * S + lane;
+  uint4 acc[kSlHints];
+#pragma unroll
+  for (int i = 0; i < kSlHints; ++i) acc[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int s0 = 0; s0 < S; s0 += kSlLanes) {
+    int32_t off[kSlHints];
+#pragma unroll
+    for (int i = 0; i < kSlHints; ++i) {
+      const int h = i * kSlSlots + slot;
+      off[i] = h < nb && s0 + lane < S
+                   ? __ldg(off0 + static_cast<size_t>(h) * S + s0)
+                   : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kSlLanes; ++u) {
+      const uint4* chunk = base + static_cast<size_t>(s0 + u) * s_stride;
+#pragma unroll
+      for (int i = 0; i < kSlHints; ++i) {
+        const int32_t o = __shfl_sync(0xFFFFFFFFu, off[i], src | u);
+        if (static_cast<uint32_t>(o) < static_cast<uint32_t>(C)) {
+          xor_into(acc[i], __ldg(chunk + static_cast<size_t>(o) * e));
+        }
+      }
+    }
+  }
+  uint4* dst = out + (static_cast<size_t>(p) * B + b0) * e + c * kSlLanes +
+               lane;
+#pragma unroll
+  for (int i = 0; i < kSlHints; ++i) {
+    const int h = i * kSlSlots + slot;
+    if (h < nb) dst[h * e] = acc[i];
+  }
 }
 
 // K2, row-split form: W warps (W divides kMaxSplit) per (row of the (P, B)
@@ -824,7 +925,7 @@ static int launch(const void* db, const void* offsets, const void* skip,
 // and return the cudaError_t of the launch (0 on success); k < 1 is refused
 // with cudaErrorInvalidValue.
 
-// K2, both forms: db (S, P, C*k, 128) int32; offsets (P, B, S) int32;
+// K2, all three forms: db (S, P, C*k, 128) int32; offsets (P, B, S) int32;
 // out (P, B, k*128) int32.
 
 // The row-split form with W warps a row (W in 1, 2, 4, 8).
@@ -842,6 +943,26 @@ extern "C" int xor_gather_row_split(const void* db, const void* offsets,
   l.blocks = tasks > 0 ? blocks_for(tasks * W) : 0;
   if (l.blocks == 0) return 0;
   dispatch(k, l);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sliced form: 4k column slices of 128 bytes, B in balanced hint
+// blocks of at most kSlBlock; the grid (hint block, partition, slice), so
+// that the CTAs launched together share a slice and a partition.
+extern "C" int xor_gather_sliced(const void* db, const void* offsets,
+                                 void* out, int S, int P, int C, int k,
+                                 int B, void* stream) {
+  if (k < 1 || C < 1 || S < 0 || P < 0 || B < 0 || P > 65535 ||
+      k > 65535 / 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (P == 0 || B == 0) return 0;
+  const int blocks = (B + kSlBlock - 1) / kSlBlock;
+  const int hb = (B + blocks - 1) / blocks;   // balanced hint blocks
+  sliced_row_split_kernel<<<dim3(blocks, P, 4 * k), kSlThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(db), static_cast<const int32_t*>(offsets),
+      static_cast<uint4*>(out), S, P, C, B, k, hb);
   return static_cast<int>(cudaGetLastError());
 }
 

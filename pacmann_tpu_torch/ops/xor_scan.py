@@ -13,12 +13,15 @@ An offset outside [0, C) is a skip. Two versions of that function:
   - xor_gather_plain: a loop over s of torch gathers (torch has no XOR
     reduction);
   - xor_gather_cuda: kernel K2 (csrc/xor_gather.cu), any k >= 1, in one
-    of two forms that gather_form picks by shape: "chunk" (chunk-major:
-    a chunk's rows staged in shared memory, read by a block of up to 2,560
-    hints) where a partition's B rows name each chunk row 16 times or
-    more (hint generation at C <= 512), else "row" (row-split:
-    row_split_warps warps per output row and group of at most 4 of its
-    128-word rows, their partial sums XORed in shared memory).
+    of three forms that gather_form picks by shape. Hint generation,
+    where a partition's B rows name each chunk row many times, takes
+    "chunk" (chunk-major: a chunk's rows staged in shared memory, read by
+    a block of up to 2,560 hints) at C <= 512 and "sliced" (a CTA gathers
+    one 128-byte column slice of the entries for its hints, so that the
+    hints resident together share each chunk's slice in L2) above; the
+    rest "row" (row-split: row_split_warps warps per output row and group
+    of at most 4 of its 128-word rows, their partial sums XORed in shared
+    memory).
 xor_gather routes a CPU tensor to the plain version and a CUDA tensor to
 the kernel; there is no fallback between them, nor between the forms.
 
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from pacmann_tpu_torch import native_lib
-from pacmann_tpu_torch.utils import cuda_lib
+from pacmann_tpu_torch.utils import cuda_lib, trace
 
 SKIP = -1   # the sentinel offset hint generation writes for a skipped chunk
 
@@ -47,6 +50,11 @@ SKIP = -1   # the sentinel offset hint generation writes for a skipped chunk
 # shared memory: 188,544 B at C = 512 (the kernel refuses C above 855).
 CHUNK_MAJOR_MIN_REUSE = 16
 CHUNK_MAJOR_MAX_C = 512
+# Above that C the sliced form gathers each 128-byte slice of a named row
+# from L2, where the hints resident together fetched it: on the H100 at
+# uniform offsets it is 3-18 % faster than the row form at B = C, 33-34 %
+# at 2C and 36-50 % at 4C (C = 8,192 and 1,024).
+SLICED_MIN_REUSE = 2
 # warps that fill an H100 at half occupancy (132 SMs x 32): the row form
 # splits rows over more warps until it has as many
 ROW_SPLIT_TARGET_WARPS = 132 * 32
@@ -66,11 +74,12 @@ def group_rows(k: int) -> int:
 def gather_form(P: int, B: int, S: int, C: int, k: int) -> str:
     """K2's form for a (P, B) output over S chunks of C entries of k rows:
     "chunk" where B >= CHUNK_MAJOR_MIN_REUSE * C and C <=
+    CHUNK_MAJOR_MAX_C, "sliced" where B >= SLICED_MIN_REUSE * C and C >
     CHUNK_MAJOR_MAX_C, else "row". Deterministic, and no fallback: the
     form chosen launches or raises."""
-    if B >= CHUNK_MAJOR_MIN_REUSE * C and C <= CHUNK_MAJOR_MAX_C:
-        return "chunk"
-    return "row"
+    if C <= CHUNK_MAJOR_MAX_C:
+        return "chunk" if B >= CHUNK_MAJOR_MIN_REUSE * C else "row"
+    return "sliced" if B >= SLICED_MIN_REUSE * C else "row"
 
 
 def row_split_warps(P: int, B: int, S: int, k: int) -> int:
@@ -108,9 +117,10 @@ def xor_gather_plain(db4: torch.Tensor, offsets: torch.Tensor,
 def xor_gather_cuda(db4: torch.Tensor, offsets: torch.Tensor, k: int,
                     form: str | None = None) -> torch.Tensor:
     """Kernel K2: same contract as xor_gather_plain, on CUDA tensors, in
-    `form` ("chunk" or "row"; None: gather_form's choice; the row form
-    takes row_split_warps warps a row). Counts its launches in
-    xor_gather_cuda.launches."""
+    `form` ("chunk", "sliced" or "row"; None: gather_form's choice; the
+    row form takes row_split_warps warps a row). Counts its launches in
+    xor_gather_cuda.launches, and those of the sliced form in the trace
+    counter "k2.sliced"."""
     cuda_lib.require_cuda_tensor(db4, "db4", torch.int32)
     cuda_lib.require_cuda_tensor(offsets, "offsets", torch.int32)
     S, P, CK, L = db4.shape
@@ -127,8 +137,10 @@ def xor_gather_cuda(db4: torch.Tensor, offsets: torch.Tensor, k: int,
     argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     args = [db4.data_ptr(), offsets.data_ptr(), out.data_ptr(), S, P, C, k,
             B]
-    if form == "chunk":
-        fn = cuda_lib.function("xor_gather", "xor_gather_chunk_major",
+    if form in ("chunk", "sliced"):
+        entry = "xor_gather_chunk_major" if form == "chunk" \
+            else "xor_gather_sliced"
+        fn = cuda_lib.function("xor_gather", entry,
                                argtypes + [ctypes.c_void_p])
     elif form == "row":
         fn = cuda_lib.function("xor_gather", "xor_gather_row_split",
@@ -139,6 +151,8 @@ def xor_gather_cuda(db4: torch.Tensor, offsets: torch.Tensor, k: int,
     cuda_lib.check(fn(*args, cuda_lib.stream_ptr(db4.device)),
                    f"xor_gather ({form})")
     xor_gather_cuda.launches += 1
+    if form == "sliced":
+        trace.count("k2.sliced")
     return out
 
 

@@ -21,7 +21,12 @@ with the same offsets (skips folded in); K7b on the k = 2 and k = 5 DBs
 with K1's table and the skip mask beside it; K7c on the flat
 single-server layout (B = 57,632, S = 492, C = 2,048, skip 25 %), the
 entry points' choice of form (a tree whose wrappers take a form also
-times the row form). Every result is held against its plain version.
+times the row form); K2 at the preps whose C is above the chunk form's:
+the SIFT100M shard's (4, 179,584, 764, C = 8,192), bench's BIG (16,
+24,416, 196, C = 1,024) and the 5M pin's (16, 35,552, 156, C = 2,048),
+K1's table and the skip mask on random DBs, in the entry point's form
+(the row form in a tree without the sliced one) and the row form, beside
+gather_bound. Every result is held against its plain version.
 --groups picks "pir" (K1, K3, K4, K5) and/or "gather" (K2, K7a-K7c).
 With --phases it then times this tree's phases: K3's, from protocol.cu
 built with -DK3_PHASE_CLOCKS, whose marks record the SM clock (clock64)
@@ -143,6 +148,56 @@ def gather_cases(cs, gen) -> tuple[list, list, list, list]:
     return k2, k7a, k7b, [(f"B={cs.FLAT_B}", flat, f_off, f_skip, 2)]
 
 
+# K2's preps above the chunk form's C: (label, n, entry bytes, batch)
+K2_PREPS = (("shard", 25_000_000, 640, 8), ("BIG", 3_201_821, 896, 32),
+            ("5M", 5_000_000, 640, 32))
+
+
+def k2_prep_turn(cs, res: dict) -> None:
+    """K2 at K2_PREPS: K1's table of the deployment's parameters with the
+    engine's skip mask, on a random DB, in the entry point's form and the
+    row form, each held against its plain version and timed with CUDA
+    events; "... bound" is gather_bound of the offsets."""
+    import torch
+
+    from pacmann_tpu_torch.ops import aes, xor_scan
+    from pacmann_tpu_torch.pir import layout
+    from pacmann_tpu_torch.pir.device_engine import _build_skip
+    from pacmann_tpu_torch.pir.params import (derive_batch_params,
+                                              derive_piano_params)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    for label, n, entry_bytes, batch in K2_PREPS:
+        c = derive_batch_params(n, entry_bytes, batch, cs.FAIL)
+        p = derive_piano_params(c.partition_size, entry_bytes, cs.FAIL)
+        S, Hp, R, C = (p.set_size, p.primary_hint_num,
+                       p.max_query_per_chunk, p.chunk_size)
+        T, P = Hp + S * R, c.partition_num
+        k = layout.entry_rows(entry_bytes // 4)
+        rk = aes.round_keys([bytes([i]) * 16 for i in range(P)]).cuda()
+        off = torch.where(_build_skip(P, T, Hp, R, S, "cuda"), xor_scan.SKIP,
+                          aes.aes_mmo_cuda(rk, T, S, p.chunk_mask)
+                          ).contiguous()
+        db = torch.empty((S, P, C * k, 128), dtype=torch.int32,
+                         device="cuda").random_(-2**31, 2**31, generator=gen)
+        want = xor_scan.xor_gather_plain(db, off, k)
+        calls = {"": lambda: xor_scan.xor_gather_cuda(db, off, k),
+                 " row": lambda: xor_scan.xor_gather_cuda(db, off, k,
+                                                          form="row")}
+        print(f"K2 {label} prep (P={P}, B={T}, S={S}, C={C}, k={k}): the "
+              f"entry point's form {xor_scan.gather_form(P, T, S, C, k)}",
+              flush=True)
+        for form, call in calls.items():
+            cs.check(torch.equal(call(), want),
+                     f"K2 {label} prep{form} differs from its plain version")
+            res[f"K2 {label} prep{form}"] = (cs.cuda_ms(call, 3), None)
+        res[f"K2 {label} prep bound"] = (
+            cs.gather_bound(off, None, C, k)[0]["bound_ms"], None)
+        del db, off, want
+        torch.cuda.empty_cache()
+
+
 def gather_turn(cs, res: dict) -> None:
     """The gather group of one turn: K2's chunk form, K7a, K7b and K7c
     (the entry point's form; also the row form where the wrappers take
@@ -203,6 +258,9 @@ def gather_turn(cs, res: dict) -> None:
                      f"K7c{form} {label} differs from its plain version")
             res[f"K7c{form} {label}"] = (cs.cuda_ms(call, 5), None)
         del want
+    del k2, k7a, k7b, k7c
+    torch.cuda.empty_cache()
+    k2_prep_turn(cs, res)
 
 
 def turn(tree: Path, groups: tuple) -> dict:

@@ -12,6 +12,7 @@ import torch
 from pacmann_tpu.ops.xor_scan import (
     xor_gather_multi, xor_hintgen_mm, xor_scan_parts)
 from pacmann_tpu_torch.ops import xor_scan
+from pacmann_tpu_torch.utils import trace
 from pacmann_tpu_torch.utils.u32 import from_u32
 
 # Tests run in several worker processes at once; torch's default of one
@@ -82,16 +83,21 @@ def test_gather_plain_at_ragged_shapes(S, P, C, k, B):
 
 
 # (P, B, S, C, k) -> form: the SIFT1M prep at k = 2, 5, 8; the 5M prep,
-# whose C = 2,048 rows a chunk do not fit the shared-memory ring (the row
-# form serves it); the online scans at Q = 6 and 96; both sides of the
-# switch at B = 16C; and B = 2C, where the row form was the faster
+# whose C = 2,048 rows a chunk do not fit the shared-memory ring (the
+# sliced form serves it); the online scans at Q = 6 and 96; both sides of
+# the switch at B = 16C; B = 2C, where the row form was the faster; the
+# SIFT100M shard's prep (sliced) and its online scans at Q = 6 and 384
+# (row); both sides of the sliced form's switch at B = 2C, C = 8,192
 @pytest.mark.parametrize("P,B,S,C,k,form", [
     (16, 12512, 124, 512, 2, "chunk"), (16, 12512, 124, 512, 5, "chunk"),
-    (16, 12512, 124, 512, 8, "chunk"), (16, 35552, 156, 2048, 2, "row"),
+    (16, 12512, 124, 512, 8, "chunk"), (16, 35552, 156, 2048, 2, "sliced"),
     (16, 6, 124, 512, 2, "row"), (16, 96, 124, 512, 2, "row"),
     (16, 96, 124, 512, 8, "row"), (16, 8191, 124, 512, 2, "row"),
     (16, 8192, 124, 512, 2, "chunk"), (16, 1024, 124, 512, 2, "row"),
-    (16, 100000, 124, 1024, 2, "row")])
+    (16, 100000, 124, 1024, 2, "sliced"),
+    (4, 179584, 764, 8192, 2, "sliced"), (4, 6, 764, 8192, 2, "row"),
+    (4, 384, 764, 8192, 2, "row"), (4, 16383, 764, 8192, 2, "row"),
+    (4, 16384, 764, 8192, 2, "sliced")])
 def test_gather_form_rule(P, B, S, C, k, form):
     assert xor_scan.gather_form(P, B, S, C, k) == form
 
@@ -118,6 +124,39 @@ def test_xor_gather_cuda_refuses_an_unknown_form(monkeypatch):
     with pytest.raises(ValueError, match="unknown K2 form"):
         xor_scan.xor_gather_cuda(db4, off, 1, form="plane")
     assert xor_scan.xor_gather_cuda.launches == launches
+
+
+@pytest.mark.parametrize("form,entry,counted", [
+    ("sliced", "xor_gather_sliced", 1), ("chunk", "xor_gather_chunk_major", 0),
+    ("row", "xor_gather_row_split", 0)])
+def test_xor_gather_cuda_launches_its_form(monkeypatch, form, entry, counted):
+    """Each form calls its C entry point with (S, P, C, k, B); the sliced
+    form counts "k2.sliced" once a launch inside trace.enabled(), and
+    nothing is counted outside it."""
+    calls = []
+
+    def function(lib, name, argtypes):
+        def launch(*args):
+            calls.append((lib, name, args[3:8]))
+            return 0
+        return launch
+
+    monkeypatch.setattr(xor_scan.cuda_lib, "require_cuda_tensor",
+                        lambda *a: None)
+    monkeypatch.setattr(xor_scan.cuda_lib, "function", function)
+    monkeypatch.setattr(xor_scan.cuda_lib, "stream_ptr", lambda device: 0)
+    S, P, C, k, B = 5, 3, 4, 2, 7
+    db4 = torch.zeros((S, P, C * k, 128), dtype=torch.int32)
+    off = torch.zeros((P, B, S), dtype=torch.int32)
+    launches = xor_scan.xor_gather_cuda.launches
+    with trace.enabled():
+        out = xor_scan.xor_gather_cuda(db4, off, k, form=form)
+        assert trace.read().counters == ({"k2.sliced": 1} if counted else {})
+    xor_scan.xor_gather_cuda(db4, off, k, form=form)
+    assert trace.read().counters == ({"k2.sliced": 1} if counted else {})
+    assert out.shape == (P, B, k * 128)
+    assert calls == [("xor_gather", entry, (S, P, C, k, B))] * 2
+    assert xor_scan.xor_gather_cuda.launches == launches + 2
 
 
 def test_server_scan_matches_gather_multi():
