@@ -118,9 +118,12 @@ def _carry(st: dict) -> tuple:
             st["hist"], st["finished"])
 
 
-def _consumed(st: dict) -> int:
+def _consumed(st: dict, site: str | None = None) -> int:
     """Max over the state's partitions of the served count and of the
-    backup-hint burn."""
+    backup-hint burn: two reads of the device, counted under sync counter
+    `site` where one is given."""
+    if site is not None:
+        trace.count(site, 2)
     return max(int(st["finished"].max()), int(st["hist"].sum(dim=1).max()))
 
 
@@ -605,10 +608,11 @@ class DevicePianoEngine:
             **self._protocol_kw())
         return entries, oks
 
-    def consumed(self) -> int:
+    def consumed(self, site: str | None = None) -> int:
         """Device-measured budget use since prep: max over partitions of
-        the served count and of the backup-hint burn."""
-        return _consumed(self.state)
+        the served count and of the backup-hint burn (its reads counted
+        under sync counter `site`, if given)."""
+        return _consumed(self.state, site)
 
     # -- offline -------------------------------------------------------------
 
@@ -726,7 +730,21 @@ class DevicePianoEngine:
         unconditionally (all-dummy when nothing is left), so the server
         sees a fixed pattern; retries=0 is the strict single-round
         contract. Budget use is read back from the device after the batch
-        (max of served count and backup-hint burn), as in the JAX engine."""
+        (max of served count and backup-hint burn), as in the JAX engine.
+
+        Traced as the request span "query" (counter `queries`), holding
+        "query.fill" (the dedup; each round's FCFS fill and dummy draws),
+        each round's "round", "query.read" (the round's entries and ok to
+        the host, spread into the responses and the cache; the answers
+        assembled) and "query.budget" (the consumed() read and the re-prep
+        decision; a re-prep's own "prep" span inside it). Counters:
+        query.rounds (rounds run), query.unserved (ids answered with
+        zeros), sync.query_read (one a device->host read)."""
+        with trace.span("query"):
+            trace.count("queries")
+            return self._query(ids, retries)
+
+    def _query(self, ids, retries: int | None) -> np.ndarray:
         c = self.config
         p = self.params
         ids = [int(i) for i in ids]
@@ -741,12 +759,13 @@ class DevicePianoEngine:
         if quota > 0:
             # distinct uncached ids in first-come order (an in-batch repeat
             # hits the reference's response cache, pir.go:381-383)
-            want: list[int] = []
-            seen: set[int] = set()
-            for idx in ids:
-                if idx not in seen and idx not in self.cache:
-                    want.append(idx)
-                    seen.add(idx)
+            with trace.span("query.fill"):
+                want: list[int] = []
+                seen: set[int] = set()
+                for idx in ids:
+                    if idx not in seen and idx not in self.cache:
+                        want.append(idx)
+                        seen.add(idx)
             online = (self._online_measured if self.measure_comm
                       else self._online)
             for rnd in range(1 + max(retries, 0)):
@@ -755,55 +774,69 @@ class DevicePianoEngine:
                 if rnd > 0 and (self.queries_made_in_partition
                                 + (rnd + 1) * quota >= p.max_query_num - 2):
                     break
-                idx_q = np.full((quota, P), -1, np.int32)
-                gidx_q = np.full((quota, P), -1, np.int64)
-                filled = [0] * P
-                next_want: list[int] = []
-                for gidx in want:
-                    i = gidx // c.partition_size
-                    if filled[i] < quota:
-                        idx_q[filled[i], i] = gidx - i * c.partition_size
-                        gidx_q[filled[i], i] = gidx
-                        filled[i] += 1
-                    else:
-                        next_want.append(gidx)   # FCFS overflow -> retry
-                rand_offs = (self._rng.integers(
-                    0, 2**32, size=(quota, P, p.set_size), dtype=np.uint64)
-                    & np.uint64(p.chunk_mask)).astype(np.uint32)
-                entries, oks = online(idx_q, rand_offs)
-                entries = entries[:, :, :E].cpu().numpy().view(np.uint32)
-                oks = oks.cpu().numpy()
-                failed: list[int] = []
-                for j in range(quota):
-                    for i in range(P):
-                        g = gidx_q[j, i]
-                        if g < 0:
-                            continue
-                        if oks[j, i]:
-                            responses[int(g)] = entries[j, i]
-                            self.cache[int(g)] = entries[j, i]
+                with trace.span("query.fill"):
+                    idx_q = np.full((quota, P), -1, np.int32)
+                    gidx_q = np.full((quota, P), -1, np.int64)
+                    filled = [0] * P
+                    next_want: list[int] = []
+                    for gidx in want:
+                        i = gidx // c.partition_size
+                        if filled[i] < quota:
+                            idx_q[filled[i], i] = gidx - i * c.partition_size
+                            gidx_q[filled[i], i] = gidx
+                            filled[i] += 1
                         else:
-                            failed.append(int(g))  # hint miss / budget deny
+                            next_want.append(gidx)   # FCFS overflow -> retry
+                    rand_offs = (self._rng.integers(
+                        0, 2**32, size=(quota, P, p.set_size),
+                        dtype=np.uint64)
+                        & np.uint64(p.chunk_mask)).astype(np.uint32)
+                entries, oks = online(idx_q, rand_offs)
+                with trace.span("query.read"):
+                    entries = entries[:, :, :E].cpu().numpy().view(np.uint32)
+                    trace.count("sync.query_read")
+                    oks = oks.cpu().numpy()
+                    trace.count("sync.query_read")
+                    failed: list[int] = []
+                    for j in range(quota):
+                        for i in range(P):
+                            g = gidx_q[j, i]
+                            if g < 0:
+                                continue
+                            if oks[j, i]:
+                                responses[int(g)] = entries[j, i]
+                                self.cache[int(g)] = entries[j, i]
+                            else:
+                                failed.append(int(g))  # miss / budget deny
                 rounds_run += 1
                 want = next_want + failed
+        trace.count("query.rounds", rounds_run)
 
-        out = np.zeros((len(ids), E), np.uint32)
-        for r, idx in enumerate(ids):
-            if idx in responses:
-                out[r] = responses[idx]
-            elif idx in self.cache:
-                out[r] = self.cache[idx]
+        with trace.span("query.read"):
+            out = np.zeros((len(ids), E), np.uint32)
+            unserved = 0
+            for r, idx in enumerate(ids):
+                if idx in responses:
+                    out[r] = responses[idx]
+                elif idx in self.cache:
+                    out[r] = self.cache[idx]
+                else:
+                    unserved += 1
+        trace.count("query.unserved", unserved)
 
         # budget bookkeeping + auto re-prep (batch-pir.go:239-245), with
         # the estimate corrected to the device-measured consumption
-        if rounds_run:
-            self.queries_made_in_partition = self.consumed()
-        if self.queries_made_in_partition >= p.max_query_num - 2:
-            if self.verbose:
-                print(f"Redo preprocessing after {self.finished_batch_num} batches")
-            self.preprocessing()
-        else:
-            self.finished_batch_num += len(ids) // c.batch_size
+        with trace.span("query.budget"):
+            if rounds_run:
+                self.queries_made_in_partition = self.consumed(
+                    site="sync.query_read")
+            if self.queries_made_in_partition >= p.max_query_num - 2:
+                if self.verbose:
+                    print(f"Redo preprocessing after "
+                          f"{self.finished_batch_num} batches")
+                self.preprocessing()
+            else:
+                self.finished_batch_num += len(ids) // c.batch_size
         return out
 
     # -- accounting (batch-pir.go:250-276) -----------------------------------

@@ -134,8 +134,8 @@ class ShardedPianoEngine(DevicePianoEngine):
                 oks.append(o.to(self.device))
             return torch.cat(entries, dim=1), torch.cat(oks, dim=1)
 
-    def consumed(self) -> int:
-        return max(_consumed(st) for st in self.shard_states)
+    def consumed(self, site: str | None = None) -> int:
+        return max(_consumed(st, site) for st in self.shard_states)
 
 
 class ChunkShardedPianoEngine(DevicePianoEngine):

@@ -15,9 +15,9 @@ record_function and allocates nothing.
 
 Inside `enabled()` each span records its name, its start and end
 (time.perf_counter_ns), its id, its parent's id and the id of the request
-it belongs to: the outermost open "search" or "prep" span (None outside
-one); and the counters count. The records and the counters are kept in
-memory until the next `enabled()` and read out with `read()`. While a
+it belongs to: the outermost open "search", "prep" or "query" span (None
+outside one); and the counters count. The records and the counters are
+kept in memory until the next `enabled()` and read out with `read()`. While a
 profiler is active a span opens record_function("pacmann.<name>"), so that
 it sits in the profiler's trace on the same clock as the device operations
 launched inside it; under the profiler alone nothing is kept in memory.
@@ -39,7 +39,7 @@ from torch.autograd import profiler as _profiler
 from torch.autograd.profiler import record_function
 
 PREFIX = "pacmann."
-REQUESTS = ("search", "prep")
+REQUESTS = ("search", "prep", "query")
 
 
 class Span(NamedTuple):

@@ -153,10 +153,12 @@ def test_device_fused_matches_jax(data, concurrent, benchmarking):
         assert (got.answers >= 0).any()
 
 
-def test_synthetic_inputs_and_random_graph_match_jax(capsys):
+def test_synthetic_inputs_and_random_graph_match_jax(capsys,
+                                                      pinned_randbits):
     """No arrays, no files: vectors, the random graph (build_graph=False)
     and queries drawn from the seed's generator in the JAX order, then the
-    engine's prep and the start ids from the same generator."""
+    engine's prep and the start ids from the same generator; the
+    refreshes' keys pinned."""
     kw = dict(n=512, dim=8, m=8, k=5, q=3, max_step=4, parallel=2,
               build_graph=False, seed=11, engine="simple")
     want = jdriver._load_or_make_inputs(jdriver.PrivateSearchConfig(**kw),
@@ -169,9 +171,12 @@ def test_synthetic_inputs_and_random_graph_match_jax(capsys):
     g = got[1]
     assert not (g == np.arange(512)[:, None]).any()
     assert "RANDOM graph" in capsys.readouterr().out
-    _assert_same(driver.run_private_search(
-                     driver.PrivateSearchConfig(**kw, device="cpu")),
-                 jdriver.run_private_search(jdriver.PrivateSearchConfig(**kw)))
+    pinned_randbits()
+    got = driver.run_private_search(
+        driver.PrivateSearchConfig(**kw, device="cpu"))
+    pinned_randbits()
+    _assert_same(got, jdriver.run_private_search(
+        jdriver.PrivateSearchConfig(**kw)))
 
 
 def _write_bvecs(path, mat):
@@ -253,13 +258,16 @@ def test_build_graph_raises_named_error(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("ext", [".txt", ".npy"])
-def test_output_and_report_files_match_jax(data, tmp_path, ext):
+def test_output_and_report_files_match_jax(data, pinned_randbits, tmp_path,
+                                          ext):
     """The answers file in both formats byte for byte, and the appended
-    report line for line but for the time lines."""
+    report line for line but for the time lines; the refreshes' keys
+    pinned."""
     vecs, graph, queries, _, _ = data
     files = {}
     for name, mod, extra in (("jax", jdriver, {}),
                              ("port", driver, {"device": "cpu"})):
+        pinned_randbits()
         out, rep = tmp_path / f"{name}{ext}", tmp_path / f"{name}.report"
         res = mod.run_private_search(
             mod.PrivateSearchConfig(n=N, dim=D, m=M, k=10, q=4, max_step=6,

@@ -305,3 +305,132 @@ def test_timed_spans_are_the_engine_and_search_times():
     assert fs.last_maintenance_s == pytest.approx(fs.maintenance_s)
     fs.ensure_budget(per + 1, 2, 2, min_steps=per + 1)
     assert fs.refreshes == 3 and fs.maintenance_s > spans_s
+
+
+# -- the engine's batch API (DevicePianoEngine.query) ------------------------
+
+BATCH_IDS = 16          # 4 a partition: the tiny engine has P = 4
+
+
+def _batch_engine(seed=5):
+    """A tiny prepped engine on the CPU and the id batches it is asked."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 2**32, size=(N, D + M), dtype=np.uint32)
+    e = DevicePianoEngine(N, 4 * (D + M), M, raw, 8, device="cpu")
+    e.preprocessing(rng=np.random.default_rng(seed + 1))
+    return e, rng.integers(0, N, size=(40, BATCH_IDS))
+
+
+def _batches_until_reprep(e, batches):
+    """Query batches until one re-preps inside its call; -> the answers."""
+    out = []
+    for ids in batches:
+        before = e.queries_made_in_partition
+        out.append(e.query(ids))
+        if e.queries_made_in_partition < before or not e.cache:
+            return out
+    raise AssertionError("no batch re-prepped")
+
+
+def test_query_is_a_request_holding_its_phases():
+    e, batches = _batch_engine()
+    with trace.enabled():
+        for ids in batches[:3]:
+            e.query(ids)
+    rec = trace.read()
+    queries = [s for s in rec.spans if s.name == "query"]
+    assert len(queries) == rec.counters["queries"] == 3
+    for q in queries:
+        assert q.parent is None and q.request == q.id
+        mine = [s for s in rec.spans if s.request == q.id and s is not q]
+        assert {s.name for s in mine if s.parent == q.id} == {
+            "query.fill", "round", "query.read", "query.budget"}
+        assert {s.name for s in mine} >= {"round.select", "round.scan",
+                                          "round.finish"}
+        for s in mine:
+            assert q.start_ns <= s.start_ns <= s.end_ns <= q.end_ns
+
+
+@pytest.mark.parametrize("retries", (0, 1, 2))
+def test_query_counters_count_calls_rounds_and_reads(retries):
+    """queries one a call, query.rounds 1 + retries a call, sync.query_read
+    one a device->host read outside the rounds (each .cpu() and int()
+    seen by a TorchFunctionMode): two a round and consumed()'s two;
+    query.unserved the answers left zero."""
+    e, batches = _batch_engine()
+    reads, in_round = [], []
+    inner = e._round
+
+    def round_unwatched(*a, **kw):
+        in_round.append(1)
+        try:
+            return inner(*a, **kw)
+        finally:
+            in_round.pop()
+
+    class Reads(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if not in_round and func in (torch.Tensor.cpu,
+                                         torch.Tensor.__int__):
+                reads.append(func)
+            return func(*args, **(kwargs or {}))
+
+    e._round = round_unwatched
+    calls, zero_rows = 2, 0
+    with trace.enabled(), Reads():
+        for ids in batches[:calls]:
+            out = e.query(ids, retries=retries)
+            zero_rows += int((out == 0).all(axis=1).sum())
+    c = trace.read().counters
+    assert c["queries"] == calls
+    assert c["query.rounds"] == calls * (1 + retries)
+    assert c["sync.query_read"] == len(reads) == 2 * c["query.rounds"] \
+        + 2 * calls
+    assert c["query.unserved"] == zero_rows
+
+
+def test_a_reprep_inside_a_call_sits_under_its_prep_span():
+    e, batches = _batch_engine()
+    with trace.enabled():
+        _batches_until_reprep(e, batches)
+    rec = trace.read()
+    by_id = {s.id: s for s in rec.spans}
+    preps = [s for s in rec.spans if s.name == "prep"]
+    assert len(preps) == rec.counters["preps"] == 1
+    prep = preps[0]
+    budget = by_id[prep.parent]
+    query = by_id[budget.parent]
+    assert budget.name == "query.budget" and query.name == "query"
+    assert prep.request == query.id == query.request
+    assert {s.name for s in rec.spans if s.parent == prep.id} >= {
+        "prep.draw", "prep.keys", "prep.upload", "prep.k1", "prep.k2"}
+    assert query.start_ns <= prep.start_ns <= prep.end_ns <= query.end_ns
+
+
+@pytest.mark.parametrize("traced", ("enabled", "profiler"))
+def test_traced_queries_answer_and_leave_state_as_untraced_ones(traced):
+    """The same batches, across a re-prep inside a call, on two engines
+    from the same seeds: traced and not, the same answers, state, cache,
+    budget and generator state, bit for bit."""
+    runs = []
+    for on in (False, True):
+        e, batches = _batch_engine()
+        ctx = contextlib.nullcontext()
+        if on:
+            ctx = (trace.enabled() if traced == "enabled"
+                   else profile(activities=[ProfilerActivity.CPU]))
+        with ctx:
+            out = _batches_until_reprep(e, batches)
+            out.append(e.query(batches[-1]))
+        runs.append((out, state_to_numpy(e.state), e.cache,
+                     e.queries_made_in_partition,
+                     e._rng.bit_generator.state))
+    (a0, s0, c0, u0, g0), (a1, s1, c1, u1, g1) = runs
+    assert len(a0) == len(a1) and all(np.array_equal(x, y)
+                                      for x, y in zip(a0, a1))
+    assert s0.keys() == s1.keys()
+    for key in s0:
+        assert np.array_equal(s0[key], s1[key]), key
+    assert c0.keys() == c1.keys() and all(np.array_equal(c0[k], c1[k])
+                                          for k in c0)
+    assert u0 == u1 and g0 == g1
