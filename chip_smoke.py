@@ -3870,9 +3870,15 @@ def bench_phase(db, raw: np.ndarray, seed: int, reset,
     from pacmann_tpu_torch import bench
     from pacmann_tpu_torch.ops import aes
     from pacmann_tpu_torch.pir.device_engine import resolve_route
-    from pacmann_tpu_torch.pir.params import expected_success_rate
+    from pacmann_tpu_torch.pir.params import (derive_batch_params,
+                                              derive_piano_params,
+                                              expected_success_rate)
 
-    route = resolve_route(None, "cuda")
+    # the route of the main mode's shape; BIG's (Hp = 7,168, S = 196)
+    # resolves to the same
+    c = derive_batch_params(N, ENTRY_BYTES, BATCH, FAIL)
+    p = derive_piano_params(c.partition_size, ENTRY_BYTES, FAIL)
+    route = resolve_route(None, "cuda", Hp=p.primary_hint_num, S=p.set_size)
     engine_kernels = path_kernels(route, False)
     P = BATCH // 2                                  # the partitions
     res, launches = {}, {}

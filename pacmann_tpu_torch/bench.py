@@ -31,7 +31,9 @@ Environment knobs, as bench.py's:
                          batch latency and the reference's estimated ANN
                          latency (batch_ms * 2 + 50 ms) * 15
                          [pianopir/pir_test.go:204-275]
-The protocol route is the engine's: $PACMANN_PROTOCOL_ROUTE, else "xla".
+The protocol route is the engine's: $PACMANN_PROTOCOL_ROUTE, else "fused"
+(kernel K3) on the card and "xla" on the CPU; the JSON line names the
+route the engine took (DevicePianoEngine.protocol_route).
 
 Every function takes device=None, meaning the card (it raises where there
 is none); device="cpu" runs the plain versions, for the tests.
@@ -63,8 +65,7 @@ import torch
 
 from pacmann_tpu_torch.graph.beam import finish_topk
 from pacmann_tpu_torch.ops.distance import inner_product
-from pacmann_tpu_torch.pir.device_engine import (DevicePianoEngine,
-                                                 resolve_route)
+from pacmann_tpu_torch.pir.device_engine import DevicePianoEngine
 from pacmann_tpu_torch.pir.params import expected_success_rate
 from pacmann_tpu_torch.private.fused_search import (FusedPrivateSearch,
                                                     _seed_beam,
@@ -323,7 +324,7 @@ def hintgen(n: int, device=None) -> dict:
         "reference_query_compute_ms": REFERENCE_QUERY_COMPUTE_MS,
         "reference_maintenance_ms": REFERENCE_MAINTENANCE_MS,
         **device_fields(dev),
-        "protocol_route": resolve_route(None, dev),
+        "protocol_route": pir.protocol_route,
         "aes_route": AES_ROUTE,
         "reference_s": REFERENCE_HINTGEN_S,
         **prep,

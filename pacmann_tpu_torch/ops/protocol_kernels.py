@@ -63,6 +63,13 @@ def select_smem_bytes(Hp: int, S: int) -> int:
             + 2 * (_THREADS // 32) * _MATCH_BUF)
 
 
+def select_fits(Hp: int, S: int, limit: int) -> bool:
+    """Whether K3 and K4 take a partition of Hp primary slots and S chunks:
+    Hp within their 16-bit slot indices and their plan (select_smem_bytes)
+    within `limit` bytes of a CTA's shared memory (smem_limit)."""
+    return Hp <= MAX_SLOTS and select_smem_bytes(Hp, S) <= limit
+
+
 def _programmed_chunk(prog: torch.Tensor, C: int, dpp: int) -> torch.Tensor:
     """(P, Hp) chunk a slot is programmed for; -1 where it is not."""
     return torch.where(prog != dpp, torch.div(prog, C, rounding_mode="floor"),

@@ -18,7 +18,9 @@ The whole client+server state lives on one device:
        reservations, then budgets. The client-protocol route picks the
        form: "xla" an owner fixpoint of torch ops, "pallas" kernel K4 for
        the claim, "fused" kernel K3 for the whole selection
-       (ops/protocol_kernels.py); all three give the same outcome;
+       (ops/protocol_kernels.py); all three give the same outcome. Unless
+       a route is named, a CUDA device takes "fused" wherever K3 can
+       serve the round and "xla" elsewhere (resolve_route);
     B. the query sets (the client->server message, pir.go:443-448), the
        server's one gather-XOR (pir.go:65-88, kernel K2), the unmask. A
        table-free engine evaluates the hit slots' offset sets and the
@@ -79,7 +81,9 @@ def _resolve_refresh(rows: int) -> str:
 # fixpoint of torch ops, "pallas" kernel K4 for the claim, "fused" kernel
 # K3 for the whole selection. "auto" is "pallas" on a CUDA device and "xla"
 # on the CPU, as the JAX engine's is the Pallas kernel on a TPU and XLA
-# elsewhere. None defers to $PACMANN_PROTOCOL_ROUTE, then _DEFAULT_ROUTE.
+# elsewhere. None defers to $PACMANN_PROTOCOL_ROUTE, then to the default
+# (resolve_route): "fused" on a CUDA device wherever K3 can serve the
+# round, else _DEFAULT_ROUTE, which is the JAX engine's default everywhere.
 ROUTES = ("xla", "pallas", "fused")
 _DEFAULT_ROUTE = "xla"
 
@@ -127,10 +131,26 @@ def _consumed(st: dict, site: str | None = None) -> int:
     return max(int(st["finished"].max()), int(st["hist"].sum(dim=1).max()))
 
 
-def resolve_route(route: str | None, device) -> str:
-    """The client-protocol route for a call on `device` (see ROUTES)."""
+def resolve_route(route: str | None, device, *, Hp: int | None = None,
+                  S: int | None = None, table: bool = True) -> str:
+    """The client-protocol route of a round on `device` (see ROUTES):
+    `route`, else $PACMANN_PROTOCOL_ROUTE, else the default. The default is
+    "fused" on a CUDA device where kernel K3 can serve a round over Hp
+    primary slots and S chunks from the offset table (table=False: a
+    table-free client, which K3 cannot serve); everywhere else, and where
+    Hp and S are not given, it is "xla". Reads no device: the shared-memory
+    limit is read once a card (protocol_kernels.smem_limit)."""
     if route is None:
-        route = os.environ.get("PACMANN_PROTOCOL_ROUTE", _DEFAULT_ROUTE)
+        route = os.environ.get("PACMANN_PROTOCOL_ROUTE")
+    if route is None:
+        dev = torch.device(device)
+        if dev.type == "cuda" and table and Hp is not None:
+            index = (torch.cuda.current_device() if dev.index is None
+                     else dev.index)
+            if protocol_kernels.select_fits(
+                    Hp, S, protocol_kernels.smem_limit(index)):
+                return "fused"
+        return _DEFAULT_ROUTE
     if route == "auto":
         return "pallas" if torch.device(device).type == "cuda" else "xla"
     if route not in ROUTES:
@@ -146,7 +166,8 @@ def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
     Returns (sel, qs), qs (Q, P, S) int32 being the per-round offset
     vectors (the client->server message, pir.go:443-448); sel carries what
     _pir_finish needs. route: see resolve_route; every route gives the
-    same hit, ok_q, ok_r, ig and qs.
+    same hit, ok_q, ok_r, ig and qs. A round whose selection K3 (its plain
+    version on the CPU) serves counts one select.fused.
 
     rk: the partitions' AES round keys (P, 11, 16) uint8. When given, the
     client is table-free: one PRF call (kernel K5 on CUDA) evaluates the
@@ -156,8 +177,9 @@ def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
     tag, prog, ppar, slot_col, hist, finished = carry
     Q, P = idx_q.shape
     dev = idx_q.device
-    route = resolve_route(route, dev)
+    route = resolve_route(route, dev, Hp=Hp, S=S, table=rk is None)
     if route == "fused" and rk is None:
+        trace.count("select.fused")
         with trace.span("round.claim"):
             sel, qs = protocol_kernels.select_full(
                 slot_col, prog, tag, table, repl_idx, hist, finished, idx_q,
@@ -452,8 +474,10 @@ class DevicePianoEngine:
         when asked for).
 
         kernel_route: the client-protocol route of every batch (ROUTES,
-        "auto", or None for $PACMANN_PROTOCOL_ROUTE, then "xla"), resolved
-        at each batch as resolve_route says.
+        "auto", or None for $PACMANN_PROTOCOL_ROUTE, then the default:
+        "fused" on a CUDA device where K3 takes the state's shape and the
+        engine keeps the table, else "xla"), resolved at each batch as
+        resolve_route says; protocol_route names the route taken.
 
         measure_comm: run each round split at the protocol messages, the
         offset upload and the entry download crossing the host as numpy
@@ -581,6 +605,15 @@ class DevicePianoEngine:
         self.state = self._zero_state_on(
             self.config.partition_num,
             None if rk is None else rk.to(self.device), self.device)
+
+    @property
+    def protocol_route(self) -> str:
+        """The client-protocol route the engine's rounds take (see
+        resolve_route)."""
+        p = self.params
+        return resolve_route(self.kernel_route, self.device,
+                             Hp=p.primary_hint_num, S=p.set_size,
+                             table=not self.table_free)
 
     def _protocol_kw(self) -> dict:
         p = self.params

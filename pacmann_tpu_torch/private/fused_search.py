@@ -12,9 +12,10 @@ Each beam step, over a group of concurrent queries:
      the rest are dropped (batch-pir.go:194-216);
   4. PIR: the engine's device round (`_round`, _pir_batch on each shard
      of a sharded engine) serves quota sub-queries per partition on the
-     engine's protocol route (kernel K3 or K4 selects on CUDA when the
-     route says so; kernel K2 answers; a table-free engine's offsets come
-     from kernel K5);
+     engine's protocol route (on CUDA kernel K3 selects unless a route
+     or a table-free engine says otherwise, K4 claims on route "pallas";
+     kernel K2 answers; a table-free engine's offsets come from kernel
+     K5);
   5. decode (vector || neighbors) and update the visited table
      (search.go:187-207).
 

@@ -9,7 +9,9 @@ build and launch its own csrc/, while the inputs and the timing are this
 tree's chip_smoke.py helpers for both (the base's chip_smoke.py may time
 fewer shapes, or none replayed from a CUDA graph, which is the only
 device-only time of short kernels). Shapes: the SIFT1M deployment's (n = 1M
-entries of 640 B, batch 32) and the pins n = 5M (K1) and n = 7M (K3/K4 at
+entries of 640 B, batch 32; K3/K4 at Q = 6, 96 and 384), the batch-PIR
+store's (3,201,821 entries of 896 B, batch 32: K3/K4 at Q = 2, Hp =
+7,168, S = 196, C = 1,024) and the pins n = 5M (K1) and n = 7M (K3/K4 at
 Hp = 14,336); back-to-back calls (CUDA events) and calls replayed from a
 CUDA graph (device time); K4 also over the 7M pin's whole budget (Q =
 max_query_num), its replay wherever the tree's plan needs no opt-in above
@@ -56,6 +58,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PHASES = ("phase1", "sync1", "walk", "sync2", "phase3")
+# the batch-PIR store of the upstream's TestBatchPIRPerf (batch 32): K3's
+# and K4's shape in its batches' rounds, Q = 2 at Hp = 7,168, S = 196
+BIG3P2M_N, BIG3P2M_ENTRY_BYTES = 3_201_821, 896
 
 
 def cases(cs, aes, pk, gen) -> tuple[list, list, list, list]:
@@ -65,9 +70,9 @@ def cases(cs, aes, pk, gen) -> tuple[list, list, list, list]:
     from pacmann_tpu_torch.pir.params import (derive_batch_params,
                                               derive_piano_params)
 
-    def params(n):
-        c = derive_batch_params(n, cs.ENTRY_BYTES, cs.BATCH, cs.FAIL)
-        return c, derive_piano_params(c.partition_size, cs.ENTRY_BYTES,
+    def params(n, entry_bytes=cs.ENTRY_BYTES):
+        c = derive_batch_params(n, entry_bytes, cs.BATCH, cs.FAIL)
+        return c, derive_piano_params(c.partition_size, entry_bytes,
                                       cs.FAIL)
 
     rk = aes.round_keys([bytes([i]) * 16 for i in range(16)]).cuda()
@@ -76,9 +81,11 @@ def cases(cs, aes, pk, gen) -> tuple[list, list, list, list]:
         _, p = params(n)
         T = p.primary_hint_num + p.set_size * p.max_query_per_chunk
         k1.append((label, rk, T, p.set_size, p.chunk_mask))
-    for label, n, quotas in (("3584", cs.N, (6, 96, 384)),
-                             ("14336", cs.PROTOCOL_PIN_N, (6, 96))):
-        c, p = params(n)
+    for label, n, entry_bytes, quotas in (
+            ("3584", cs.N, cs.ENTRY_BYTES, (6, 96, 384)),
+            ("7168", BIG3P2M_N, BIG3P2M_ENTRY_BYTES, (2,)),
+            ("14336", cs.PROTOCOL_PIN_N, cs.ENTRY_BYTES, (6, 96))):
+        c, p = params(n, entry_bytes)
         T = p.primary_hint_num + p.set_size * p.max_query_per_chunk
         table = aes.aes_mmo_cuda(rk, T, p.set_size, p.chunk_mask)
         kw = dict(C=p.chunk_size, R=p.max_query_per_chunk,

@@ -503,6 +503,100 @@ def test_resolve_route(monkeypatch):
                     device="cpu", kernel_route="cuda")
 
 
+# the H100's opt-in shared memory a CTA (protocol_kernels.smem_limit)
+H100_SMEM = 232_448
+
+
+@pytest.mark.parametrize("env,route,device,shape,table,limit,want", [
+    # the default: "xla" on the CPU, "fused" on CUDA where K3 can serve
+    (None, None, "cpu", (3584, 124), True, H100_SMEM, "xla"),
+    (None, None, "cuda:0", (3584, 124), True, H100_SMEM, "fused"),
+    (None, None, "cuda:0", (7168, 196), True, H100_SMEM, "fused"),
+    (None, None, "cuda:0", (57344, 764), True, H100_SMEM, "fused"),
+    # ... and "xla" where it cannot: past the 16-bit slots, a plan over
+    # the card's limit, a table-free client, a shape not given
+    (None, None, "cuda:0", (tpk.MAX_SLOTS + 1, 124), True, H100_SMEM,
+     "xla"),
+    (None, None, "cuda:0", (3584, 8192), True, 48 * 1024, "xla"),
+    (None, None, "cuda:0", (3584, 8192), True, H100_SMEM, "fused"),
+    (None, None, "cuda:0", (3584, 124), False, H100_SMEM, "xla"),
+    (None, None, "cuda:0", None, True, H100_SMEM, "xla"),
+    # an explicit route and the environment win, as before
+    (None, "xla", "cuda:0", (3584, 124), True, H100_SMEM, "xla"),
+    (None, "pallas", "cuda:0", (3584, 124), True, H100_SMEM, "pallas"),
+    (None, "auto", "cuda:0", (3584, 124), True, H100_SMEM, "pallas"),
+    (None, "fused", "cuda:0", (tpk.MAX_SLOTS + 1, 124), True, H100_SMEM,
+     "fused"),
+    ("xla", None, "cuda:0", (3584, 124), True, H100_SMEM, "xla"),
+    ("pallas", None, "cuda:0", (7168, 196), True, H100_SMEM, "pallas"),
+    ("fused", None, "cpu", (3584, 124), True, H100_SMEM, "fused"),
+    ("pallas", "fused", "cuda:0", (3584, 124), True, H100_SMEM, "fused"),
+])
+def test_resolve_route_default_by_device_and_shape(
+        monkeypatch, env, route, device, shape, table, limit, want):
+    """The default route: "fused" (K3) on a CUDA device where K3 takes the
+    shape (Hp within its 16-bit slots, its plan within the card's shared
+    memory) and the client holds the table, else "xla"; a named route and
+    $PACMANN_PROTOCOL_ROUTE come first. smem_limit stands in for the card
+    (and must not be asked on the CPU)."""
+    def limit_of(index):
+        assert index == 0 and torch.device(device).type == "cuda"
+        return limit
+
+    monkeypatch.setattr(tpk, "smem_limit", limit_of)
+    if env is None:
+        monkeypatch.delenv("PACMANN_PROTOCOL_ROUTE", raising=False)
+    else:
+        monkeypatch.setenv("PACMANN_PROTOCOL_ROUTE", env)
+    Hp, S = shape if shape is not None else (None, None)
+    assert tde.resolve_route(route, device, Hp=Hp, S=S, table=table) == want
+
+
+@pytest.mark.parametrize("route", ["xla", "fused"])
+def test_engine_route_counts_fused_selections(monkeypatch, route):
+    """Under tracing, an engine on route "fused" counts select.fused once a
+    round of its query() calls and no claim-fixpoint sync; on "xla" the
+    reverse. Answers and state stay the JAX engine's (so the two routes'
+    states are equal)."""
+    from pacmann_tpu_torch.utils import trace
+
+    monkeypatch.delenv("PACMANN_PROTOCOL_ROUTE", raising=False)
+    raw, ref, got = _engine_pair(route)
+    assert got.protocol_route == route
+    c = ref.config
+    rng = np.random.default_rng(4)
+    batches = [[int(i) for i in rng.integers(0, c.db_size, 32)]
+               for _ in range(3)] + [[7] * 32]
+    with trace.enabled():
+        for ids in batches:
+            assert np.array_equal(got.query(ids), ref.query(ids))
+    counters = trace.read().counters
+    _assert_same_state(ref, got)
+    rounds = counters["query.rounds"]
+    assert rounds >= len(batches)
+    if route == "fused":
+        assert counters.get("select.fused") == rounds
+        assert "sync.claim" not in counters
+    else:
+        assert "select.fused" not in counters
+        assert counters["sync.claim"] >= rounds
+
+
+def test_engine_default_route_on_cpu_is_xla(monkeypatch):
+    """With no route named, a CPU engine and a table-free one take "xla"
+    and never ask the card's shared-memory limit."""
+    def no_card(index):
+        raise AssertionError("smem_limit asked for a CPU engine")
+
+    monkeypatch.setattr(tpk, "smem_limit", no_card)
+    monkeypatch.delenv("PACMANN_PROTOCOL_ROUTE", raising=False)
+    raw = np.zeros((2048, 8), np.uint32)
+    for table_free in (False, True):
+        e = TorchEngine(2048, 32, 32, raw, 20, device="cpu",
+                        table_free=table_free)
+        assert e.kernel_route is None and e.protocol_route == "xla"
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """A CPU tensor never reaches cuda_lib; the kernel wrappers refuse it."""
     def no_cuda(*a, **k):
