@@ -3356,8 +3356,10 @@ def multi_device_phase(raw: np.ndarray, db, seed: int, reset, read_counts,
     reset()
     t0 = time.perf_counter()
     dryrun_multichip(8, devices=["cuda:0"] * 8)
+    # its engines take the card's default route, "fused" (K3)
     launches[path] = read_counts(path, ("aes_mmo_tables", "aes_mmo_points",
-                                        "xor_gather", "l2_distance"))
+                                        "xor_gather", "select_full",
+                                        "l2_distance"))
     out[path] = dict(seconds=time.perf_counter() - t0)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"{path} (8 shards on 1 device(s)): passed in "

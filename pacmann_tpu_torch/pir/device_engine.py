@@ -13,14 +13,15 @@ The whole client+server state lives on one device:
     partitions' AES round keys instead (the reference's client storage
     model, pir.go:404-427).
 
-  online (_pir_batch, one call per round of a batch):
+  online (DevicePianoEngine._round_on, one call per round of a batch):
     A. slot selection: the hit scan (pir.go:404-419) with in-batch
        reservations, then budgets. The client-protocol route picks the
        form: "xla" an owner fixpoint of torch ops, "pallas" kernel K4 for
        the claim, "fused" kernel K3 for the whole selection
        (ops/protocol_kernels.py); all three give the same outcome. Unless
        a route is named, a CUDA device takes "fused" wherever K3 can
-       serve the round and "xla" elsewhere (resolve_route);
+       serve the round and "xla" elsewhere (resolve_route, once an
+       engine);
     B. the query sets (the client->server message, pir.go:443-448), the
        server's one gather-XOR (pir.go:65-88, kernel K2), the unmask. A
        table-free engine evaluates the hit slots' offset sets and the
@@ -29,9 +30,9 @@ The whole client+server state lives on one device:
     C. the hint refresh (pir.go:460-468) as row scatters.
 
 The DB and the state are reached only through a few methods (_pack_db,
-_prep_state, _dummy_state, _round, consumed, prepared), which the sharded
-engines override (pir/sharded_engine.py); query() and the fused search
-run over any of them.
+_prep_state, _dummy_state, _round, consumed, prepared, and the server
+scan _scan), which the sharded engines override (pir/sharded_engine.py);
+query() and the fused search run over any of them.
 
 Protocol semantics, tie orders and the numpy draw order are the JAX
 engine's, so the same seed gives the same state bit for bit (the tests
@@ -115,13 +116,6 @@ def _build_skip(P: int, T: int, Hp: int, R: int, S: int, device):
     return skip[None].expand(P, T, S)
 
 
-def _carry(st: dict) -> tuple:
-    """The state a round updates in place: (tag, prog, primary parities,
-    slot columns, hist, finished)."""
-    return (st["tag"], st["prog"], st["primary_parity"], st["slot_col"],
-            st["hist"], st["finished"])
-
-
 def _consumed(st: dict, site: str | None = None) -> int:
     """Max over the state's partitions of the served count and of the
     backup-hint burn: two reads of the device, counted under sync counter
@@ -160,14 +154,15 @@ def resolve_route(route: str | None, device, *, Hp: int | None = None,
 
 
 def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
-                max_q, dpp, route=None, rk=None):
+                max_q, dpp, route, rk=None):
     """Client phases A + B-prep: slot selection and the query sets.
 
     Returns (sel, qs), qs (Q, P, S) int32 being the per-round offset
     vectors (the client->server message, pir.go:443-448); sel carries what
-    _pir_finish needs. route: see resolve_route; every route gives the
-    same hit, ok_q, ok_r, ig and qs. A round whose selection K3 (its plain
-    version on the CPU) serves counts one select.fused.
+    _pir_finish needs. route: one of ROUTES, as resolve_route resolved it
+    for the engine; every route gives the same hit, ok_q, ok_r, ig and qs.
+    A round whose selection K3 (its plain version on the CPU) serves counts
+    one select.fused.
 
     rk: the partitions' AES round keys (P, 11, 16) uint8. When given, the
     client is table-free: one PRF call (kernel K5 on CUDA) evaluates the
@@ -177,7 +172,6 @@ def _pir_select(table, repl_idx, carry, idx_q, rnd_q, *, C, R, Hp, S,
     tag, prog, ppar, slot_col, hist, finished = carry
     Q, P = idx_q.shape
     dev = idx_q.device
-    route = resolve_route(route, dev, Hp=Hp, S=S, table=rk is None)
     if route == "fused" and rk is None:
         trace.count("select.fused")
         with trace.span("round.claim"):
@@ -347,28 +341,6 @@ def _pir_finish(repl_val, bpar, table, carry, sel, resp, *, C, R, Hp, S,
     return carry, entries, ok_q
 
 
-def _pir_batch(db, table, repl_idx, repl_val, bpar, carry, idx_q, rnd_q,
-               *, C, R, Hp, S, k, max_q, dpp, refresh=None, route=None,
-               rk=None):
-    """Serve Q sub-queries per partition: selection (on the protocol
-    route `route`), the server scan (kernel K2 on CUDA), unmask and
-    refresh. carry = (tag, prog, ppar, slot_col, hist, finished) is
-    updated in place; idx_q (Q, P) int32 local indices (-1 = dummy); rnd_q
-    (Q, P, S) int32 dummy offsets; rk: the round keys of a table-free
-    client (see _pir_select), with table None.
-    Returns (carry, entries (Q, P, k*128) int32, ok (Q, P) bool)."""
-    Q, P = idx_q.shape
-    with trace.span("round.select"):
-        sel, qs = _pir_select(table, repl_idx, carry, idx_q, rnd_q, C=C,
-                              R=R, Hp=Hp, S=S, max_q=max_q, dpp=dpp,
-                              route=route, rk=rk)
-    with trace.span("round.scan"):
-        resp = xor_scan.xor_server_scan(db, qs, k).reshape(Q, P, k * 128)
-    with trace.span("round.finish"):
-        return _pir_finish(repl_val, bpar, table, carry, sel, resp, C=C,
-                           R=R, Hp=Hp, S=S, refresh=refresh)
-
-
 def pack_partitions(raw: torch.Tensor, lo_p: int, hi_p: int, *, S: int,
                     C: int, k: int, psize: int, device=None,
                     chunks: tuple[int, int] | None = None) -> torch.Tensor:
@@ -476,20 +448,19 @@ class DevicePianoEngine:
         kernel_route: the client-protocol route of every batch (ROUTES,
         "auto", or None for $PACMANN_PROTOCOL_ROUTE, then the default:
         "fused" on a CUDA device where K3 takes the state's shape and the
-        engine keeps the table, else "xla"), resolved at each batch as
+        engine keeps the table, else "xla"), resolved once, here, as
         resolve_route says; protocol_route names the route taken.
 
-        measure_comm: run each round split at the protocol messages, the
-        offset upload and the entry download crossing the host as numpy
-        buffers whose bytes are counted in uploaded_bytes /
-        downloaded_bytes (pir.go:443-448's messages).
+        measure_comm: split each of query()'s rounds at the protocol
+        messages (_measured_scan), the offset upload and the entry download
+        crossing the host as numpy buffers whose bytes are counted in
+        uploaded_bytes / downloaded_bytes (pir.go:443-448's messages); the
+        fused search's rounds stay unmeasured, as in the JAX engine.
 
         table_free: keep no (P, T, S) offset table after preprocessing;
         every batch evaluates the offsets it needs with the PRF (kernel K5
         on CUDA) from the partitions' round keys. The same answers and
         state as the table engine."""
-        if kernel_route is not None:
-            resolve_route(kernel_route, "cpu")    # an unknown name raises
         self.config = derive_batch_params(
             db_size, entry_bytes, batch_size, failure_prob_log2)
         c = self.config
@@ -505,16 +476,19 @@ class DevicePianoEngine:
                 raise ValueError(
                     f"packed_db shape {tuple(packed_db.shape)} != {want}")
             self.device = packed_db.device
-            self.db = packed_db
         else:
             self.device = cuda_lib.default_device(raw, device)
-            if isinstance(raw, np.ndarray):
-                # each partition's rows move to the device as it is packed
-                raw = u32_view(raw.reshape(db_size, entry_bytes // 4))
-            self.db = self._pack_db(raw)
-        self._drop_state()
         self.table_free = table_free
         self.kernel_route = kernel_route
+        # an unknown name raises here, before the DB is packed
+        self.protocol_route = resolve_route(
+            kernel_route, self.device, Hp=p.primary_hint_num, S=p.set_size,
+            table=not table_free)
+        if packed_db is None and isinstance(raw, np.ndarray):
+            # each partition's rows move to the device as it is packed
+            raw = u32_view(raw.reshape(db_size, entry_bytes // 4))
+        self.db = packed_db if packed_db is not None else self._pack_db(raw)
+        self._drop_state()
         self.measure_comm = measure_comm
         self.uploaded_bytes = 0      # measured client->server message bytes
         self.downloaded_bytes = 0    # measured server->client message bytes
@@ -606,20 +580,6 @@ class DevicePianoEngine:
             self.config.partition_num,
             None if rk is None else rk.to(self.device), self.device)
 
-    @property
-    def protocol_route(self) -> str:
-        """The client-protocol route the engine's rounds take (see
-        resolve_route)."""
-        p = self.params
-        return resolve_route(self.kernel_route, self.device,
-                             Hp=p.primary_hint_num, S=p.set_size,
-                             table=not self.table_free)
-
-    def _protocol_kw(self) -> dict:
-        p = self.params
-        return dict(C=p.chunk_size, R=p.max_query_per_chunk,
-                    Hp=p.primary_hint_num, S=p.set_size)
-
     def _round(self, idx_q: torch.Tensor, rnd_q: torch.Tensor,
                refresh=None):
         """One device round: idx_q (Q, P) int32 local indices (-1 =
@@ -630,16 +590,54 @@ class DevicePianoEngine:
             return self._round_on(self.db, self.state, idx_q, rnd_q,
                                   refresh)
 
-    def _round_on(self, db4, st: dict, idx_q, rnd_q, refresh=None):
-        """_pir_batch over the partitions db4 and st hold, on their device:
-        (entries, ok) of those partitions."""
-        _, entries, oks = _pir_batch(
-            db4, st.get("table"), st["repl_idx"], st["repl_val"],
-            st["backup_parity"], _carry(st), idx_q, rnd_q, k=self.k,
-            max_q=self.params.max_query_num, dpp=DEFAULT_PROGRAM_POINT,
-            refresh=refresh, route=self.kernel_route, rk=st.get("rk"),
-            **self._protocol_kw())
+    def _round_on(self, db4, st: dict, idx_q, rnd_q, refresh=None, *,
+                  scan=None):
+        """The one round of the protocol over the partitions db4 and st
+        hold, on their device: selection on the engine's protocol route,
+        the server's answer (`scan`, None: the _scan hook), unmask and
+        refresh; st is updated in place. A table-free st holds round keys
+        "rk" in place of the table (see _pir_select). Returns (entries
+        (Q, P, k*128) int32, ok (Q, P) bool) of those partitions."""
+        p = self.params
+        kw = dict(C=p.chunk_size, R=p.max_query_per_chunk,
+                  Hp=p.primary_hint_num, S=p.set_size)
+        carry = (st["tag"], st["prog"], st["primary_parity"],
+                 st["slot_col"], st["hist"], st["finished"])
+        with trace.span("round.select"):
+            sel, qs = _pir_select(
+                st.get("table"), st["repl_idx"], carry, idx_q, rnd_q,
+                max_q=p.max_query_num, dpp=DEFAULT_PROGRAM_POINT,
+                route=self.protocol_route, rk=st.get("rk"), **kw)
+        with trace.span("round.scan"):
+            resp = (scan or self._scan)(db4, qs)
+        with trace.span("round.finish"):
+            _, entries, oks = _pir_finish(
+                st["repl_val"], st["backup_parity"], st.get("table"), carry,
+                sel, resp, refresh=refresh, **kw)
         return entries, oks
+
+    def _scan(self, db4, qs):
+        """The server's answer to the query sets qs (Q, P, S) int32: one
+        gather-XOR of db4 (kernel K2 on CUDA) -> (Q, P, k*128) int32."""
+        return xor_scan.xor_server_scan(db4, qs, self.k).reshape(
+            *qs.shape[:2], self.Ep)
+
+    def _measured_scan(self, db4, qs):
+        """_scan split at the observable protocol messages, as the JAX
+        engine measures them: the (Q, P, S) u32 offset upload and the
+        (Q, P, entry) download cross the host as numpy buffers, their bytes
+        counted in uploaded_bytes / downloaded_bytes (pir.go:443-448). The
+        padded lanes beyond entry_u32 are structurally zero and not part of
+        the message, matching the reference's DBEntrySize*8."""
+        qs_msg = to_u32(qs)
+        self.uploaded_bytes += qs_msg.nbytes
+        resp = self._scan(db4, from_u32(qs_msg, qs.device))
+        E = self.config.entry_bytes // 4
+        resp_msg = to_u32(resp)[:, :, :E]
+        self.downloaded_bytes += resp_msg.nbytes
+        padded = np.zeros(resp.shape, np.uint32)
+        padded[:, :, :E] = resp_msg
+        return from_u32(padded, qs.device)
 
     def consumed(self, site: str | None = None) -> int:
         """Device-measured budget use since prep: max over partitions of
@@ -712,48 +710,6 @@ class DevicePianoEngine:
         idx_t = torch.from_numpy(np.asarray(idx_q, np.int32)).to(self.device)
         return self._round(idx_t, from_u32(rand_offs, self.device), refresh)
 
-    def _online_measured(self, idx_q: np.ndarray, rand_offs: np.ndarray,
-                         refresh=None):
-        """The same round split at the observable protocol messages: the
-        (Q, P, S) u32 offset upload and the (Q, P, entry) download cross
-        the host as numpy buffers and are byte-counted (pir.go:443-448's
-        messages), as in the JAX engine's _online_measured."""
-        st = self.state
-        carry = _carry(st)
-        idx_t = torch.from_numpy(np.asarray(idx_q, np.int32)).to(self.device)
-        rnd_t = from_u32(rand_offs, self.device)
-        kw = self._protocol_kw()
-        with trace.span("round"):
-            with trace.span("round.select"):
-                sel, qs = _pir_select(
-                    st.get("table"), st["repl_idx"], carry, idx_t, rnd_t,
-                    max_q=self.params.max_query_num,
-                    dpp=DEFAULT_PROGRAM_POINT, route=self.kernel_route,
-                    rk=st.get("rk"), **kw)
-            with trace.span("round.scan"):
-                # client -> server: the offset vectors, materialised on
-                # the host
-                qs_msg = to_u32(qs)
-                self.uploaded_bytes += qs_msg.nbytes
-                Q, P, _ = qs_msg.shape
-                resp = xor_scan.xor_server_scan(
-                    self.db, from_u32(qs_msg, self.device), self.k)
-                # server -> client: one entry-sized parity per sub-query
-                # (the padded lanes beyond entry_u32 are structurally zero
-                # and are not part of the message, matching the
-                # reference's DBEntrySize*8)
-                E = self.config.entry_bytes // 4
-                resp_msg = to_u32(resp.reshape(Q, P, self.Ep))[:, :, :E]
-                self.downloaded_bytes += resp_msg.nbytes
-                resp_padded = np.zeros((Q, P, self.Ep), np.uint32)
-                resp_padded[:, :, :E] = resp_msg
-            with trace.span("round.finish"):
-                _, entries, oks = _pir_finish(
-                    st["repl_val"], st["backup_parity"], st.get("table"),
-                    carry, sel, from_u32(resp_padded, self.device),
-                    refresh=refresh, **kw)
-        return entries, oks
-
     def query(self, ids, retries: int | None = None) -> np.ndarray:
         """Reference batch contract (batch-pir.go:170-248): FCFS quota of
         len(ids)/P per partition, dummy padding, overflow -> zeros; one
@@ -799,8 +755,6 @@ class DevicePianoEngine:
                     if idx not in seen and idx not in self.cache:
                         want.append(idx)
                         seen.add(idx)
-            online = (self._online_measured if self.measure_comm
-                      else self._online)
             for rnd in range(1 + max(retries, 0)):
                 # public-state-only guard: skip a retry round only when
                 # even its worst-case consumption cannot fit the window
@@ -824,7 +778,16 @@ class DevicePianoEngine:
                         0, 2**32, size=(quota, P, p.set_size),
                         dtype=np.uint64)
                         & np.uint64(p.chunk_mask)).astype(np.uint32)
-                entries, oks = online(idx_q, rand_offs)
+                if self.measure_comm:
+                    # query()'s rounds alone cross the host byte-counted
+                    idx_t = torch.from_numpy(idx_q).to(self.device)
+                    rnd_t = from_u32(rand_offs, self.device)
+                    with trace.span("round"):
+                        entries, oks = self._round_on(
+                            self.db, self.state, idx_t, rnd_t,
+                            scan=self._measured_scan)
+                else:
+                    entries, oks = self._online(idx_q, rand_offs)
                 with trace.span("query.read"):
                     entries = entries[:, :, :E].cpu().numpy().view(np.uint32)
                     trace.count("sync.query_read")

@@ -5,8 +5,9 @@ One process drives every shard of a mesh (parallel/sharding.py), as the
 reference's single-controller shard_map does; a mesh may name one device
 several times, so these engines also run as logical shards on one card.
 Both reach the DB and the state only through DevicePianoEngine's hooks
-(_pack_db, _prep_state, _dummy_state, _round, consumed), so query(), the
-budget accounting and the fused private search run over them unchanged.
+(_pack_db, _prep_state, _dummy_state, _round, consumed, _scan), so
+query(), the budget accounting and the fused private search run over them
+unchanged.
 
 ShardedPianoEngine shards the partition axis of everything: each shard
 holds P / n_dev partitions' DB (S, P_loc, C*k, 128) and state, packed
@@ -14,16 +15,17 @@ straight from the raw rows, so no device and no host buffer ever holds
 more than one shard of either (batch-pir.go:130-148's independent
 partitions). Prep draws as the single engine does, globally, then each
 shard runs K1, K2 and the replacement gather on its partitions; a batch
-round runs _pir_batch on each shard's columns with no collective, and the
-entries are gathered.
+round runs the engine's round (_round_on) on each shard's columns with no
+collective, and the entries are gathered.
 
 ChunkShardedPianoEngine shards the chunk axis S of the DB (meshes with
 more devices than partitions): each shard evaluates the offset columns of
 its chunks with the per-point PRF (K5), scans its chunks into partial
-parities (K2), and the XOR all-reduce combines them; the client phases
-(select, finish) run once, on the mesh's first device, where the
-reference runs them replicated on every device (the same values). Its
-state equals the single engine's bit for bit.
+parities (K2), and the XOR all-reduce combines them. Online it overrides
+the server scan alone: the client phases (select, finish) run once, on
+the mesh's first device, where the reference runs them replicated on
+every device (the same values). Its state equals the single engine's bit
+for bit.
 """
 
 from __future__ import annotations
@@ -36,14 +38,10 @@ from pacmann_tpu_torch.parallel.sharding import Mesh, xor_allreduce
 from pacmann_tpu_torch.pir.device_engine import (
     DevicePianoEngine,
     _build_skip,
-    _carry,
     _consumed,
     _gather_repl,
-    _pir_finish,
-    _pir_select,
     new_state,
 )
-from pacmann_tpu_torch.pir.params import DEFAULT_PROGRAM_POINT
 from pacmann_tpu_torch.utils import trace
 from pacmann_tpu_torch.utils.u32 import from_u32
 
@@ -118,7 +116,7 @@ class ShardedPianoEngine(DevicePianoEngine):
 
     def _round(self, idx_q: torch.Tensor, rnd_q: torch.Tensor,
                refresh=None):
-        """_pir_batch on each shard's columns of idx_q and rnd_q, no
+        """_round_on on each shard's columns of idx_q and rnd_q, no
         collective; entries and oks gathered on the partition axis. The
         refresh form is each shard's own (its Q * P_loc rows), as under the
         reference's shard_map."""
@@ -200,30 +198,12 @@ class ChunkShardedPianoEngine(DevicePianoEngine):
             table[:, :Hp, :].transpose(1, 2).contiguous(), Hp=Hp,
             table_free=False)
 
-    def _round(self, idx_q: torch.Tensor, rnd_q: torch.Tensor,
-               refresh=None):
-        """Select on the first device; each shard scans its chunks' columns
-        of the query sets (one K2 launch a shard), the XOR all-reduce
-        combines the partial answers; finish on the first device."""
-        st = self.state
-        carry = _carry(st)
-        kw = self._protocol_kw()
-        with trace.span("round"):
-            with trace.span("round.select"):
-                sel, qs = _pir_select(
-                    st["table"], st["repl_idx"], carry, idx_q, rnd_q,
-                    max_q=self.params.max_query_num,
-                    dpp=DEFAULT_PROGRAM_POINT, route=self.kernel_route, **kw)
-            Q, P, _ = qs.shape
-            with trace.span("round.scan"):
-                partials = [
-                    xor_scan.xor_server_scan(db, qs[:, :, s0:s1].to(dev),
-                                             self.k)
-                    for db, (s0, s1), dev in zip(
-                        self.db, self.chunk_ranges, self.mesh.devices)]
-                resp = xor_allreduce(partials).reshape(Q, P, self.Ep)
-            with trace.span("round.finish"):
-                _, entries, oks = _pir_finish(
-                    st["repl_val"], st["backup_parity"], st["table"], carry,
-                    sel, resp, refresh=refresh, **kw)
-        return entries, oks
+    def _scan(self, db4, qs):
+        """Each shard scans its chunks' columns of the query sets (one K2
+        launch a shard); the XOR all-reduce combines the partial answers
+        on the first device."""
+        partials = [
+            xor_scan.xor_server_scan(db, qs[:, :, s0:s1].to(dev), self.k)
+            for db, (s0, s1), dev in zip(db4, self.chunk_ranges,
+                                         self.mesh.devices)]
+        return xor_allreduce(partials).reshape(*qs.shape[:2], self.Ep)

@@ -10,7 +10,7 @@ Each beam step, over a group of concurrent queries:
   3. FCFS routing: surviving ids are ranked within their batch-PIR
      partitions and the first `quota` per partition become sub-queries,
      the rest are dropped (batch-pir.go:194-216);
-  4. PIR: the engine's device round (`_round`, _pir_batch on each shard
+  4. PIR: the engine's device round (`_round`, _round_on on each shard
      of a sharded engine) serves quota sub-queries per partition on the
      engine's protocol route (on CUDA kernel K3 selects unless a route
      or a table-free engine says otherwise, K4 claims on route "pallas";

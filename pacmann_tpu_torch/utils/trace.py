@@ -1,7 +1,7 @@
 """The port's own tracing: spans at its layer boundaries and counters at
 its host sync sites.
 
-    with trace.span("round.select"): ...     # a phase of the program
+    with trace.span("prep.k1"): ...          # a phase of the program
     trace.count("sync.claim")                # one host sync, by site
     with trace.enabled():                    # record, from a clean slate
         fs.search(...)

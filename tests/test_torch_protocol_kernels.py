@@ -597,6 +597,55 @@ def test_engine_default_route_on_cpu_is_xla(monkeypatch):
         assert e.kernel_route is None and e.protocol_route == "xla"
 
 
+def test_engine_route_is_fixed_at_construction(monkeypatch):
+    """An engine resolves its route once, when it is built: changing
+    $PACMANN_PROTOCOL_ROUTE afterwards changes neither its protocol_route
+    nor the route its rounds take (K4's claim_select once a round, no
+    select.fused), and resolve_route is asked once a construction and
+    never a round. Answers and state stay the JAX engine's."""
+    from pacmann_tpu_torch.utils import trace
+
+    resolves, claims = [], []
+    resolve, claim = tde.resolve_route, tpk.claim_select
+
+    def counted_resolve(*a, **kw):
+        resolves.append(a)
+        return resolve(*a, **kw)
+
+    def counted_claim(*a, **kw):
+        claims.append(1)
+        return claim(*a, **kw)
+
+    monkeypatch.setattr(tde, "resolve_route", counted_resolve)
+    monkeypatch.setattr(tpk, "claim_select", counted_claim)
+    monkeypatch.setenv("PACMANN_PROTOCOL_ROUTE", "pallas")
+    raw = np.random.default_rng(0).integers(0, 2**32, size=(2048, 8),
+                                            dtype=np.uint32)
+    ref = JaxEngine(2048, 32, 32, raw, 20, kernel_route="pallas")
+    got = TorchEngine(2048, 32, 32, raw, 20, device="cpu")
+    for e in (ref, got):
+        e.preprocessing(rng=np.random.default_rng(7))
+    assert len(resolves) == 1 and got.protocol_route == "pallas"
+    rng = np.random.default_rng(4)
+    for env in ("fused", "xla"):
+        monkeypatch.setenv("PACMANN_PROTOCOL_ROUTE", env)
+        with trace.enabled():
+            for _ in range(2):
+                ids = [int(i) for i in rng.integers(0, 2048, 32)]
+                assert np.array_equal(got.query(ids), ref.query(ids))
+        counters = trace.read().counters
+        assert got.protocol_route == "pallas"
+        assert len(claims) == counters["query.rounds"] >= 2
+        assert "select.fused" not in counters
+        assert "sync.claim" not in counters
+        claims.clear()
+    _assert_same_state(ref, got)
+    assert len(resolves) == 1
+    assert TorchEngine(2048, 32, 32, raw, 20,
+                       device="cpu").protocol_route == "xla"
+    assert len(resolves) == 2
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """A CPU tensor never reaches cuda_lib; the kernel wrappers refuse it."""
     def no_cuda(*a, **k):

@@ -14,9 +14,15 @@ import torch
 from torch.overrides import TorchFunctionMode
 from torch.profiler import ProfilerActivity, profile
 
+from pacmann_tpu.parallel.sharding import make_mesh as jmake_mesh
+from pacmann_tpu.pir.device_engine import DevicePianoEngine as JaxEngine
+from pacmann_tpu.pir.sharded_engine import (
+    ChunkShardedPianoEngine as JaxChunkSharded)
+from pacmann_tpu_torch.parallel.sharding import make_mesh
 from pacmann_tpu_torch.pir import device_engine
 from pacmann_tpu_torch.pir.convert import state_to_numpy
 from pacmann_tpu_torch.pir.device_engine import DevicePianoEngine
+from pacmann_tpu_torch.pir.sharded_engine import ChunkShardedPianoEngine
 from pacmann_tpu_torch.private.fused_search import FusedPrivateSearch
 from pacmann_tpu_torch.utils import trace
 
@@ -349,6 +355,58 @@ def test_query_is_a_request_holding_its_phases():
                                           "round.finish"}
         for s in mine:
             assert q.start_ns <= s.start_ns <= s.end_ns <= q.end_ns
+
+
+# each engine form beside its JAX twin: the plain engine, a measure_comm
+# one, and the chunk-sharded one over eight CPU shards
+ROUND_FORMS = {
+    "plain": (lambda *a: JaxEngine(*a),
+              lambda *a: DevicePianoEngine(*a, device="cpu")),
+    "measured": (lambda *a: JaxEngine(*a, measure_comm=True),
+                 lambda *a: DevicePianoEngine(*a, device="cpu",
+                                              measure_comm=True)),
+    "chunk_sharded": (lambda *a: JaxChunkSharded(*a, jmake_mesh(8)),
+                      lambda *a: ChunkShardedPianoEngine(
+                          *a, make_mesh(devices=["cpu"] * 8))),
+}
+
+
+@pytest.mark.parametrize("form", sorted(ROUND_FORMS))
+def test_each_round_is_one_tree_on_every_engine(form):
+    """Each query() round opens exactly one "round" span, holding one
+    "round.select", one "round.scan" and one "round.finish", on every
+    engine form; the answers, the state and the measured bytes equal the
+    JAX twin's."""
+    rng = np.random.default_rng(80)
+    n, eb, batch = 4096, 32, 4
+    raw = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint32)
+    make_ref, make_got = ROUND_FORMS[form]
+    ref, got = make_ref(n, eb, batch, raw, 20), make_got(n, eb, batch, raw, 20)
+    for e in (ref, got):
+        e.preprocessing(rng=np.random.default_rng(100))
+    with trace.enabled():
+        for b in range(3):
+            ids = [int(i) for i in rng.integers(0, n, batch)]
+            for e in (ref, got):
+                e._rng = np.random.default_rng(b)
+            assert np.array_equal(got.query(ids), ref.query(ids))
+    rec = trace.read()
+    rounds = [s for s in rec.spans if s.name == "round"]
+    assert len(rounds) == rec.counters["query.rounds"] >= 3
+    phases = ["round.finish", "round.scan", "round.select"]
+    for r in rounds:
+        assert sorted(s.name for s in rec.spans if s.parent == r.id) == phases
+    for name in phases:
+        assert sum(s.name == name for s in rec.spans) == len(rounds)
+    want = {k: np.asarray(v).astype(np.uint32) for k, v in ref.state.items()}
+    have = state_to_numpy(got.state)
+    assert set(have) == set(want)
+    for key in want:
+        assert np.array_equal(have[key], want[key]), key
+    assert got.queries_made_in_partition == ref.queries_made_in_partition
+    assert got.uploaded_bytes == ref.uploaded_bytes
+    assert got.downloaded_bytes == ref.downloaded_bytes
+    assert (got.uploaded_bytes > 0) == (form == "measured")
 
 
 @pytest.mark.parametrize("retries", (0, 1, 2))
