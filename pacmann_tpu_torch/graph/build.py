@@ -47,13 +47,14 @@ driver's `start_mode="centroid"` reaches.
 
 from __future__ import annotations
 
+import contextlib
 import time
 import zlib
 
 import numpy as np
 import torch
 
-from pacmann_tpu_torch.utils import cuda_lib
+from pacmann_tpu_torch.utils import cuda_lib, trace
 from pacmann_tpu_torch.utils.u32 import smallest_k
 
 ALPHA = 1.2  # build_graph.go:357
@@ -743,7 +744,15 @@ def _corridor_block(npad: int, m: int, step: int, par: int,
     return max(1, min(npad, CHUNK_BYTES[device.type] // 2 // per_query))
 
 
-def build_graph(vectors, m: int, *, rounds: int = 6, seed: int = 0,
+def build_graph(vectors, m: int, **kw) -> np.ndarray:
+    """vectors (n, d) -> graph (n, m) int32 numpy, every row exactly m
+    distinct non-self ids: _build_graph inside the request span "build"
+    (utils/trace.py), whose arguments it takes."""
+    with trace.span("build"):
+        return _build_graph(vectors, m, **kw)
+
+
+def _build_graph(vectors, m: int, *, rounds: int = 6, seed: int = 0,
                 block: int = 2048, verbose: bool = False,
                 quality_gate: bool | None = None, keep_nearest: int = 16,
                 corridor_step: int = 16, corridor_par: int = 2,
@@ -774,8 +783,9 @@ def build_graph(vectors, m: int, *, rounds: int = 6, seed: int = 0,
 
     draws: named draws handed in (a dict, or a BuildDraws that makes the
     others); the others are hashes of `seed` (BuildDraws). stats: a dict
-    that receives "phases", the seconds of each phase ("phase_draw_seconds":
-    of the draws made inside it), "draw_seconds" of all draws, "seconds",
+    that receives "phases", the seconds of each phase (those of its timed
+    spans "build.<phase>", "_" for each space; "phase_draw_seconds": of the
+    draws made inside it), "draw_seconds" of all draws, "seconds",
     "gate" (hit rate, avg steps) or None, and on the card "peak_gb", its
     peak memory. record: a dict that receives, per stage, (fn, args,
     kwargs, output), for replaying a stage elsewhere."""
@@ -800,13 +810,18 @@ def build_graph(vectors, m: int, *, rounds: int = 6, seed: int = 0,
             s += f" peak {torch.cuda.max_memory_allocated(dev) / 2**30:.1f}G"
         return s + "]"
 
-    def stage(name, fn, *args, **kw):
-        t0, d0 = time.perf_counter(), dr.seconds
-        with cuda_lib.fp32_matmul(dev):
-            out = fn(*args, **kw)
-        sync()
-        phases[name] = phases.get(name, 0.0) + time.perf_counter() - t0
+    @contextlib.contextmanager
+    def phase(name):
+        d0 = dr.seconds
+        with trace.timed("build." + name.replace(" ", "_")) as span:
+            yield
+        phases[name] = phases.get(name, 0.0) + span.seconds
         phase_draws[name] = phase_draws.get(name, 0.0) + dr.seconds - d0
+
+    def stage(name, fn, *args, **kw):
+        with phase(name), cuda_lib.fp32_matmul(dev):
+            out = fn(*args, **kw)
+            sync()
         if record is not None:
             record[name] = (fn, args, kw, out)
         return out
@@ -947,9 +962,8 @@ def build_graph(vectors, m: int, *, rounds: int = 6, seed: int = 0,
     out = out[:n].cpu().numpy().astype(np.int64)
     if verbose:
         print(f"degree regularization + fill done {el()}", flush=True)
-    t0 = time.perf_counter()
-    graph = _random_fill(out, m, rng, verbose).astype(np.int32)
-    phases["degree reg + fill"] += time.perf_counter() - t0
+    with phase("degree reg + fill"):
+        graph = _random_fill(out, m, rng, verbose).astype(np.int32)
     stats["draw_seconds"] = dr.seconds
     if dev.type == "cuda":
         stats["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -964,11 +978,10 @@ def build_graph(vectors, m: int, *, rounds: int = 6, seed: int = 0,
                 queries, 20, 20, 2, seed=seed)
 
         # the padded f32 copy is already on the device: no second upload
-        t0 = time.perf_counter()
-        hit_rate, avg_steps = evaluate_graph_quality(
-            v[:n], graph, num_queries=min(100, n), seed=seed,
-            search_fn=gate_search)
-        phases["gate"] = time.perf_counter() - t0
+        with phase("gate"):
+            hit_rate, avg_steps = evaluate_graph_quality(
+                v[:n], graph, num_queries=min(100, n), seed=seed,
+                search_fn=gate_search)
         stats["gate"] = (hit_rate, avg_steps)
         print(f"graph quality gate: self-query hit rate {hit_rate:.3f}, "
               f"avg steps {avg_steps:.1f}", flush=True)

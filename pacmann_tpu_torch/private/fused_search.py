@@ -44,6 +44,10 @@ from pacmann_tpu_torch.utils import trace
 from pacmann_tpu_torch.utils.u32 import as_f32, first_true, smallest_k
 
 INF = float("inf")
+# the trace counters of fetch_stats' three columns, counted a search from
+# the copy of its stats the search makes anyway
+FETCH_COUNTERS = ("search.fetches_wanted", "search.fetches_kept",
+                  "search.fetches_served")
 
 
 def _seed_beam(queries, start_ids, start_vecs, start_nbrs, *, parallel,
@@ -348,7 +352,10 @@ class FusedPrivateSearch:
                 # estimate to the measured consumption (max of served and
                 # backup burn)
                 e.queries_made_in_partition = e.consumed()
-                self.fetch_stats += stats.cpu().numpy()
+                got = stats.cpu().numpy()
+                self.fetch_stats += got
+                for name, v in zip(FETCH_COUNTERS, got.tolist()):
+                    trace.count(name, v)
                 out_np = out_ids.cpu().numpy().astype(np.int64)
                 if return_steps:
                     return out_np, out_steps.cpu().numpy().astype(np.int64)

@@ -15,17 +15,19 @@ record_function and allocates nothing.
 
 Inside `enabled()` each span records its name, its start and end
 (time.perf_counter_ns), its id, its parent's id and the id of the request
-it belongs to: the outermost open "search", "prep" or "query" span (None
-outside one); and the counters count. The records and the counters are
-kept in memory until the next `enabled()` and read out with `read()`. While a
-profiler is active a span opens record_function("pacmann.<name>"), so that
-it sits in the profiler's trace on the same clock as the device operations
-launched inside it; under the profiler alone nothing is kept in memory.
+it belongs to: the outermost open "search", "prep", "query" or "build"
+span (None outside one); and the counters count. The records and the
+counters are kept in memory until the next `enabled()` and read out with
+`read()`. While a profiler is active a span opens
+record_function("pacmann.<name>"), so that it sits in the profiler's trace
+on the same clock as the device operations launched inside it; under the
+profiler alone nothing is kept in memory.
 
 `timed(name)` is a span that reads the clock whether tracing is on or
 off: the program's always-on times (DevicePianoEngine.preprocessing_time,
-FusedPrivateSearch.maintenance_s) are the seconds of their "prep" and
-"search.refresh" spans. No other span reads the clock when tracing is off.
+FusedPrivateSearch.maintenance_s, build_graph's stats["phases"]) are the
+seconds of their "prep", "search.refresh" and "build.<stage>" spans. No
+other span reads the clock when tracing is off.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from torch.autograd import profiler as _profiler
 from torch.autograd.profiler import record_function
 
 PREFIX = "pacmann."
-REQUESTS = ("search", "prep", "query")
+REQUESTS = ("search", "prep", "query", "build")
 
 
 class Span(NamedTuple):

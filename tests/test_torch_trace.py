@@ -494,3 +494,116 @@ def test_traced_queries_answer_and_leave_state_as_untraced_ones(traced):
     assert c0.keys() == c1.keys() and all(np.array_equal(c0[k], c1[k])
                                           for k in c0)
     assert u0 == u1 and g0 == g1
+
+
+# -- the graph build (graph/build.py::build_graph) ---------------------------
+
+BUILD_N, BUILD_D, BUILD_M = 1024, 16, 8
+
+
+@pytest.fixture(scope="module")
+def builds():
+    """A small CPU build (two descent rounds, the quality gate on), once
+    untraced and once inside enabled(): each graph and stats, and the
+    traced build's recording."""
+    from pacmann_tpu_torch.graph.build import build_graph
+
+    rng = np.random.default_rng(31)
+    basis = rng.standard_normal((4, BUILD_D))
+    z = rng.standard_normal((BUILD_N, 4))
+    v = np.clip(np.rint(128 + 32 * z @ basis / 2), 0, 255).astype(np.uint8)
+    out = []
+    for on in (False, True):
+        stats = {}
+        with trace.enabled() if on else contextlib.nullcontext():
+            graph = build_graph(v, BUILD_M, rounds=2, seed=4, device="cpu",
+                                quality_gate=True, stats=stats)
+        out.append((graph, stats))
+    return v, out, trace.read()
+
+
+def test_a_build_is_a_request_holding_one_span_per_stage(builds):
+    """One span a stage, and a second "degree reg + fill" span for its
+    host fill; a phase's seconds are those of its spans."""
+    _, (_, (_, stats)), rec = builds
+    whole = [s for s in rec.spans if s.name == "build"]
+    assert len(whole) == 1
+    b = whole[0]
+    assert b.parent is None and b.request == b.id
+    stages = [s for s in rec.spans if s is not b]
+    phases = stats["phases"]
+    assert set(phases) == {"bootstrap", "descent 0", "descent 1", "wide",
+                           "ladder", "nav prune", "corridors",
+                           "final prune", "degree reg + fill", "gate"}
+    assert sorted(s.name for s in stages) == sorted(
+        ["build." + name.replace(" ", "_") for name in phases]
+        + ["build.degree_reg_+_fill"])
+    seconds = {}
+    for s in stages:
+        assert s.parent == b.id and s.request == b.id
+        assert b.start_ns <= s.start_ns <= s.end_ns <= b.end_ns
+        name = s.name[len("build."):].replace("_", " ")
+        seconds[name] = seconds.get(name, 0.0) + (s.end_ns - s.start_ns) * 1e-9
+    assert seconds == phases
+    assert stats["seconds"] >= sum(phases.values())
+
+
+def test_a_traced_build_gives_the_untraced_graph(builds):
+    v, ((g0, s0), (g1, s1)), _ = builds
+    assert np.array_equal(g0, g1)
+    assert s0["gate"] == s1["gate"] and set(s0["phases"]) == set(s1["phases"])
+    assert g0.shape == (BUILD_N, BUILD_M)
+    assert all(len(set(row)) == BUILD_M and i not in row
+               for i, row in enumerate(g0.tolist()))
+
+
+def _built_search(builds):
+    """The fused search over the small build's graph (vector || neighbours
+    rows), prepared from a fixed seed, and two queries."""
+    v, ((graph, _), _), _ = builds
+    vec = v.astype(np.float32)
+    raw = np.concatenate([vec.view(np.uint32), graph.astype(np.uint32)],
+                         axis=1)
+    e = DevicePianoEngine(BUILD_N, 4 * (BUILD_D + BUILD_M), BUILD_M, raw, 8,
+                          device="cpu")
+    e.preprocessing(rng=np.random.default_rng(6))
+    sids = np.random.default_rng(2).choice(BUILD_N, 32, replace=False)
+    fs = FusedPrivateSearch(e, sids, vec[sids], graph[sids], dim=BUILD_D,
+                            m=BUILD_M, n=BUILD_N)
+    return fs, vec[[3, 700]] + 1
+
+
+def test_fetch_counters_are_the_fetch_stats_increase(builds):
+    """search.fetches_wanted, _kept and _served count what fetch_stats
+    gains, search by search, across a refresh inside a search."""
+    fs, q = _built_search(builds)
+    per = (fs.engine.params.max_query_num - 2) // (
+        2 * 2 * BUILD_M // fs.engine.config.partition_num)
+    fs.fetch_stats[:] = [5, 4, 3]
+    before = fs.fetch_stats.copy()
+    with trace.enabled():
+        _run(fs, q, max_step=per + 1)
+        _run(fs, q)
+    c = trace.read().counters
+    assert fs.refreshes >= 1
+    got = [c.get(name, 0) for name in ("search.fetches_wanted",
+                                       "search.fetches_kept",
+                                       "search.fetches_served")]
+    assert got == (fs.fetch_stats - before).tolist()
+    assert got[0] >= got[1] >= got[2] > 0
+
+
+def test_a_traced_search_answers_as_an_untraced_one(builds):
+    """Over the built graph: the same answers, fetch accounting and state
+    with tracing on and off."""
+    out = []
+    for on in (False, True):
+        fs, q = _built_search(builds)
+        with trace.enabled() if on else contextlib.nullcontext():
+            ans = _run(fs, q)
+        out.append((ans, fs.fetch_stats.copy(), _state(fs)))
+    (a0, f0, s0), (a1, f1, s1) = out
+    assert np.array_equal(a0, a1) and (a0 >= 0).all()
+    assert np.array_equal(f0, f1) and s0.keys() == s1.keys()
+    for key in s0:
+        assert np.array_equal(s0[key], s1[key]), key
