@@ -23,9 +23,11 @@ The JAX package runs a segment of steps as one compiled program, and above
 4 GiB of DB (or with split_route) as a chain of programs a step; here one
 Python loop over steps drives torch ops on the engine's device, one form
 at every size, and the engine's round hook reaches its DB and state (so
-the search runs over the sharded engines too). Segments are sized to the
-hint budget left, with a refresh between them (pir.go:525-533 lifted to
-the group level), exactly as there.
+the search runs over the sharded engines too). On a CUDA device steps 1-3
+and 5 are CUDA graphs replayed on buffers the search owns (StepGraphs),
+and the round (4) is launched eagerly between them. Segments are sized to
+the hint budget left, with a refresh between them (pir.go:525-533 lifted
+to the group level), exactly as there.
 
 The JAX package draws each step's random padding ids and dummy offsets
 from its PRNG, which torch cannot reproduce: search() takes them as
@@ -51,32 +53,41 @@ FETCH_COUNTERS = ("search.fetches_wanted", "search.fetches_kept",
 
 
 def _seed_beam(queries, start_ids, start_vecs, start_nbrs, *, parallel,
-               cap, m):
+               cap, m, out=None):
     """Seed the visited tables from the start set (search.go:129-148).
-    Returns the beam (ids, dist, nbrs, explored)."""
+    Returns the beam (ids, dist, nbrs, explored): `out`, filled whole, if
+    given (tensors of those shapes), else new tensors."""
     Qn = queries.shape[0]
     dev = queries.device
     sdist = ((start_vecs[None, :, :] - queries[:, None, :]) ** 2).sum(dim=-1)
     d, sidx = smallest_k(sdist, parallel)                   # (Qn, parallel)
-    ids = torch.full((Qn, cap), -1, dtype=torch.int32, device=dev)
-    dist = torch.full((Qn, cap), INF, dtype=torch.float32, device=dev)
-    nbrs = torch.zeros((Qn, cap, m), dtype=torch.int32, device=dev)
-    explored = torch.ones((Qn, cap), dtype=torch.bool, device=dev)
+    if out is None:
+        out = (torch.empty((Qn, cap), dtype=torch.int32, device=dev),
+               torch.empty((Qn, cap), dtype=torch.float32, device=dev),
+               torch.empty((Qn, cap, m), dtype=torch.int32, device=dev),
+               torch.empty((Qn, cap), dtype=torch.bool, device=dev))
+    ids, dist, nbrs, explored = out
+    ids.fill_(-1)
+    dist.fill_(INF)
+    nbrs.zero_()
+    explored.fill_(True)
     ids[:, :parallel] = start_ids[sidx]
     dist[:, :parallel] = d
     nbrs[:, :parallel] = start_nbrs[sidx]
     explored[:, :parallel] = False
-    return ids, dist, nbrs, explored
+    return out
 
 
 def draw_step_randoms(gen: torch.Generator, *, max_step, Qn, parallel, m,
-                      n, quota, P, S, C, device):
+                      n, quota, P, S, C, device, rand_out=None):
     """Every step's random values: rand_ids_all (max_step, Qn, parallel, m)
     int32 in [0, n) — padding for invalid pops — and rnd_all (max_step,
     quota, P, S) int32 in [0, C) — oblivious dummy offsets. The role of the
-    JAX package's _draw_step_randoms, with torch's generator."""
+    JAX package's _draw_step_randoms, with torch's generator. rand_out: a
+    tensor of rand_ids_all's shape to draw it into, the same values."""
     rand_ids = torch.randint(0, n, (max_step, Qn, parallel, m),
-                             generator=gen, dtype=torch.int32, device=device)
+                             generator=gen, dtype=torch.int32, device=device,
+                             out=rand_out)
     rnd = torch.randint(0, C, (max_step, quota, P, S), generator=gen,
                         dtype=torch.int32, device=device)
     return rand_ids, rnd
@@ -122,26 +133,38 @@ def _route_core(ids, dist, nbrs, explored, rand_ids, *, psize, m, P,
             idx_q.to(torch.int32))
 
 
-def _update_core(beam, stats, queries, entries, oks, route_out, step_idx,
-                 *, dim, m, k, P, parallel, quota):
+def _pad_round(entries, oks, width, out=None):
+    """A round's entries (quota, P, Ep) and oks (quota, P) as rows
+    (quota*P + 1, width) of their first `width` words and (quota*P + 1,)
+    served flags, the last row zero and unserved: the row that overflow and
+    failed firsts read. out: such a pair whose last row is zero, written in
+    place; else a new pair."""
+    Qp = oks.numel()
+    if out is None:
+        out = (torch.zeros((Qp + 1, width), dtype=entries.dtype,
+                           device=entries.device),
+               torch.zeros(Qp + 1, dtype=torch.bool, device=oks.device))
+    ent, ok = out
+    ent[:Qp].copy_(entries.reshape(Qp, -1)[:, :width])
+    ok[:Qp].copy_(oks.reshape(Qp))
+    return out
+
+
+def _update_core(beam, stats, queries, ent, ok, route_out, step_idx, *,
+                 dim, m, P, parallel, quota):
     """Step 5: response fan-out, decode, visited-table update and fetch
-    accounting. Writes the step's window of the beam and `stats` in place."""
+    accounting, from the round padded by _pad_round (ent, ok). Writes the
+    step's window of the beam and `stats` in place."""
     ids, dist, nbrs, explored = beam
     fid, known, is_first, keep, slot, fo_idx, has_first = route_out
     Qn = queries.shape[0]
-    Ep = k * 128
     dev = ids.device
-    entries_flat = torch.cat(
-        [entries.reshape(quota * P, Ep),
-         torch.zeros((1, Ep), dtype=entries.dtype, device=dev)])
-    ok_flat = torch.cat([oks.reshape(quota * P),
-                         torch.zeros(1, dtype=torch.bool, device=dev)])
     # every fetch reads its first occurrence's response slot (overflow and
     # failed firsts resolve to the zero row)
     sfo = torch.where(has_first, slot[fo_idx], -1)
     rslot = torch.where(sfo >= 0, sfo, quota * P)
-    res = entries_flat[rslot]                               # (F, Ep)
-    res_ok = ok_flat[rslot] & keep[fo_idx] & has_first
+    res = ent[rslot]                                        # (F, dim + m)
+    res_ok = ok[rslot] & keep[fo_idx] & has_first
 
     vec = as_f32(res[:, :dim])                              # (F, dim)
     nb = res[:, dim:dim + m]                                # (F, m)
@@ -164,8 +187,98 @@ def _update_core(beam, stats, queries, entries, oks, route_out, step_idx,
     explored[:, w] = ~accept
 
     # fetch-success accounting: distinct wanted fetches, quota survivors,
-    # PIR-served survivors
-    stats += torch.stack([is_first.sum(), keep.sum(), oks.sum()])
+    # PIR-served survivors (the padding row is unserved)
+    stats += torch.stack([is_first.sum(), keep.sum(), ok.sum()])
+
+
+class StepGraphs:
+    """The buffers of one step shape of a FusedPrivateSearch, which
+    search() writes in place of allocating: the queries, the beam, the
+    fetch stats and the steps' padding ids. On a CUDA device each beam
+    step's routing (_route_core) and update (_update_core) on them are
+    CUDA graphs, captured on first use in the order they replay, all in
+    one memory pool; the engine's round runs eagerly between the two, and
+    its entries and oks are copied into the update's static inputs."""
+
+    def __init__(self, *, Qn: int, parallel: int, max_step: int, dim: int,
+                 m: int, P: int, quota: int, psize: int, n: int, device):
+        cap = parallel + max_step * parallel * m
+        self.queries = torch.empty((Qn, dim), dtype=torch.float32,
+                                   device=device)
+        self.beam = (torch.empty((Qn, cap), dtype=torch.int32, device=device),
+                     torch.empty((Qn, cap), dtype=torch.float32,
+                                 device=device),
+                     torch.empty((Qn, cap, m), dtype=torch.int32,
+                                 device=device),
+                     torch.empty((Qn, cap), dtype=torch.bool, device=device))
+        self.stats = torch.zeros(3, dtype=torch.int64, device=device)
+        self.rand_all = torch.empty((max_step, Qn, parallel, m),
+                                    dtype=torch.int32, device=device)
+        self.graphed = torch.device(device).type == "cuda"
+        if not self.graphed:
+            return
+        self.width = dim + m
+        self.round_in = (torch.zeros((quota * P + 1, dim + m),
+                                     dtype=torch.int32, device=device),
+                         torch.zeros(quota * P + 1, dtype=torch.bool,
+                                     device=device))
+        self.route_kw = dict(psize=psize, m=m, P=P, parallel=parallel,
+                             quota=quota, n=n)
+        self.update_kw = dict(dim=dim, m=m, P=P, parallel=parallel,
+                              quota=quota)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+        self.routes = [None] * max_step     # (graph, idx_q)
+        self.updates = [None] * max_step
+        # route outputs an update not yet captured reads, by step
+        self.pending = {}
+        # one eager step on empty tables (every pop invalid, padding id 0)
+        # runs every kernel the graphs hold before the first capture;
+        # search() seeds over it
+        ids, dist, nbrs, explored = self.beam
+        ids.fill_(-1)
+        dist.fill_(INF)
+        nbrs.zero_()
+        explored.fill_(True)
+        out = _route_core(*self.beam, self.rand_all[0].zero_(),
+                          **self.route_kw)
+        _update_core(self.beam, self.stats, self.queries.zero_(),
+                     *self.round_in, out[:-1], 0, **self.update_kw)
+
+    def _capture(self, fn):
+        """fn's device work captured as a graph in the pool, not run ->
+        (graph, fn's result)."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool)
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+        trace.count("step.captures")
+        return graph, out
+
+    def route(self, g: int) -> torch.Tensor:
+        """Step g's frontier pop, dedup and routing, replayed -> idx_q
+        (quota, P), the graph's output."""
+        if self.routes[g] is None:
+            graph, out = self._capture(lambda: _route_core(
+                *self.beam, self.rand_all[g], **self.route_kw))
+            self.routes[g] = graph, out[-1]
+            self.pending[g] = out[:-1]
+        graph, idx_q = self.routes[g]
+        graph.replay()
+        return idx_q
+
+    def update(self, g: int, entries, oks):
+        """Step g's decode and update from the round's entries and oks,
+        replayed after they are copied into the graph's inputs."""
+        _pad_round(entries, oks, self.width, out=self.round_in)
+        if self.updates[g] is None:
+            self.updates[g], _ = self._capture(lambda: _update_core(
+                self.beam, self.stats, self.queries, *self.round_in,
+                self.pending.pop(g), g, **self.update_kw))
+        self.updates[g].replay()
 
 
 class FusedPrivateSearch:
@@ -194,6 +307,9 @@ class FusedPrivateSearch:
         self.fetch_stats = np.zeros(3, np.int64)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(0)
+        # StepGraphs by step shape (Qn, parallel, max_step); m, dim and the
+        # engine's P and device are the object's own
+        self.step_graphs = {}
 
     def _refresh(self) -> float:
         """Regenerate the hints (zeroed ones with refresh_dummy). Returns
@@ -255,29 +371,52 @@ class FusedPrivateSearch:
         return lens
 
     def run_steps(self, beam, stats, queries_d, rand_all, rnd_all,
-                  lo: int, hi: int, *, parallel: int, quota: int):
+                  lo: int, hi: int, *, parallel: int, quota: int,
+                  graphs: StepGraphs | None = None):
         """Beam steps [lo, hi) of a group on the engine's device: frontier
         pop, dedup and FCFS routing, the engine's round, decode and update.
         Writes `beam` and `stats` in place; no budget check, refresh or
-        bookkeeping, and no copy to the host of its own."""
+        bookkeeping, and no copy to the host of its own. graphs: the
+        StepGraphs whose buffers beam, stats, queries_d and rand_all are;
+        on a CUDA device the routing and update are its graphs' replays."""
         e = self.engine
         P = e.config.partition_num
+        graphed = graphs is not None and graphs.graphed
         for g in range(lo, hi):
             with trace.span("step"):
                 trace.count("steps")
+                if graphed:
+                    with trace.span("step.route"):
+                        idx_q = graphs.route(g)
+                    entries, oks = e._round(idx_q, rnd_all[g])
+                    with trace.span("step.update"):
+                        graphs.update(g, entries, oks)
+                    trace.count("step.graphed")
+                    continue
                 with trace.span("step.route"):
-                    (fid, known, is_first, keep, slot, fo_idx, has_first,
-                     idx_q) = _route_core(
+                    out = _route_core(
                         *beam, rand_all[g], psize=e.config.partition_size,
                         m=self.m, P=P, parallel=parallel, quota=quota,
                         n=self.n)
-                entries, oks = e._round(idx_q, rnd_all[g])
+                entries, oks = e._round(out[-1], rnd_all[g])
                 with trace.span("step.update"):
                     _update_core(
-                        beam, stats, queries_d, entries, oks,
-                        (fid, known, is_first, keep, slot, fo_idx,
-                         has_first), g, dim=self.dim, m=self.m, k=e.k, P=P,
+                        beam, stats, queries_d,
+                        *_pad_round(entries, oks, self.dim + self.m),
+                        out[:-1], g, dim=self.dim, m=self.m, P=P,
                         parallel=parallel, quota=quota)
+
+    def _step_graphs(self, Qn: int, parallel: int, max_step: int,
+                     quota: int) -> StepGraphs:
+        """The StepGraphs of a step shape, made on its first search."""
+        key = (Qn, parallel, max_step)
+        if key not in self.step_graphs:
+            e = self.engine
+            self.step_graphs[key] = StepGraphs(
+                Qn=Qn, parallel=parallel, max_step=max_step, dim=self.dim,
+                m=self.m, P=e.config.partition_num, quota=quota,
+                psize=e.config.partition_size, n=self.n, device=e.device)
+        return self.step_graphs[key]
 
     def search(self, queries: np.ndarray, k: int, max_step: int,
                parallel: int, step_randoms=None, return_steps: bool = False):
@@ -299,27 +438,31 @@ class FusedPrivateSearch:
         seg_lens = self.segment_plan(max_step, quota, use_leftover=True)
 
         with trace.span("search"):
-            cap = parallel + max_step * parallel * self.m
+            bufs = self._step_graphs(Qn, parallel, max_step, quota)
             with trace.span("search.seed"):
-                queries_d = torch.as_tensor(np.asarray(queries, np.float32),
-                                            device=dev)
-                beam = _seed_beam(queries_d, self.start_ids, self.start_vecs,
-                                  self.start_nbrs, parallel=parallel,
-                                  cap=cap, m=self.m)
+                bufs.queries.copy_(torch.as_tensor(
+                    np.asarray(queries, np.float32)))
+                beam = _seed_beam(bufs.queries, self.start_ids,
+                                  self.start_vecs, self.start_nbrs,
+                                  parallel=parallel,
+                                  cap=bufs.beam[0].shape[1], m=self.m,
+                                  out=bufs.beam)
             with trace.span("search.draw"):
                 if step_randoms is None:
-                    rand_all, rnd_all = draw_step_randoms(
+                    _, rnd_all = draw_step_randoms(
                         self.generator, max_step=max_step, Qn=Qn,
                         parallel=parallel, m=self.m, n=self.n, quota=quota,
-                        P=P, S=p.set_size, C=p.chunk_size, device=dev)
+                        P=P, S=p.set_size, C=p.chunk_size, device=dev,
+                        rand_out=bufs.rand_all)
                 else:
-                    rand_all, rnd_all = (
+                    rand_in, rnd_all = (
                         (a if isinstance(a, torch.Tensor)
                          else torch.from_numpy(np.asarray(a).astype(np.int32)))
                         .to(device=dev, dtype=torch.int32)
                         for a in step_randoms)
+                    bufs.rand_all.copy_(rand_in)
 
-            stats = torch.zeros(3, dtype=torch.int64, device=dev)
+            stats = bufs.stats.zero_()
             self.last_maintenance_s = 0.0
             base = 0
             for seg in seg_lens:
@@ -336,9 +479,9 @@ class FusedPrivateSearch:
                         with trace.span("search.sync"):
                             torch.cuda.synchronize(dev)
                     self.last_maintenance_s += self._refresh()
-                self.run_steps(beam, stats, queries_d, rand_all, rnd_all,
-                               base, base + seg, parallel=parallel,
-                               quota=quota)
+                self.run_steps(beam, stats, bufs.queries, bufs.rand_all,
+                               rnd_all, base, base + seg, parallel=parallel,
+                               quota=quota, graphs=bufs)
                 # budget bookkeeping mirrors engine.query
                 # (batch-pir.go:239-245)
                 e.queries_made_in_partition += need

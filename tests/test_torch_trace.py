@@ -293,6 +293,22 @@ def test_sync_counters_count_their_sites(monkeypatch, form, per_round):
     assert c["sync.claim"] == len(passes) >= rounds
 
 
+def test_cpu_steps_are_not_graphed():
+    """On the CPU every beam step runs eagerly: two traced searches of one
+    shape count their steps, each inside a route and an update span, and
+    no step.graphed and no step.captures."""
+    fs, q = _search()
+    with trace.enabled():
+        _run(fs, q)
+        _run(fs, q)
+    rec = trace.read()
+    c = rec.counters
+    assert c["steps"] == 12
+    assert c.get("step.graphed", 0) == 0 and c.get("step.captures", 0) == 0
+    for name in ("step", "step.route", "step.update"):
+        assert sum(s.name == name for s in rec.spans) == 12, name
+
+
 def test_timed_spans_are_the_engine_and_search_times():
     """preprocessing_time is its prep span's length and maintenance_s the
     sum of the search's refresh spans; last_maintenance_s is the last
