@@ -28,11 +28,13 @@ cannot reproduce: search() and search_paths_all() take them as
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from pacmann_tpu_torch.ops.distance import l2_distance_plain
-from pacmann_tpu_torch.utils import cuda_lib
+from pacmann_tpu_torch.utils import cuda_lib, trace
 from pacmann_tpu_torch.utils.u32 import smallest_k
 
 INF = float("inf")
@@ -138,16 +140,31 @@ def _step(beam, queries, vectors, graph, rand_ids, step_idx, *, n, m,
     return popped
 
 
+def _untraced(name: str):
+    return contextlib.nullcontext()
+
+
 def _beam_search(vectors, graph, start_ids, queries, rand, *, n, m,
-                 max_step, parallel, benchmarking=False):
+                 max_step, parallel, benchmarking=False, traced=False):
     """All steps for a batch of queries. rand (Q, max_step, parallel, m).
-    Returns the visited tables and the popped ids (Q, max_step, parallel)."""
+    Returns the visited tables and the popped ids (Q, max_step, parallel).
+    traced: the seed is span "ann.seed" of the port's tracing and each step
+    a span "ann.step" (counter "ann.steps"), as PlaintextEngine.search
+    runs them; search_paths_all opens none."""
+    span = trace.span if traced else _untraced
     cap = parallel + max_step * parallel * m
-    beam = _seed(queries, start_ids, vectors[start_ids], graph[start_ids],
-                 parallel=parallel, cap=cap, m=m, benchmarking=benchmarking)
-    popped = [_step(beam, queries, vectors, graph, rand[:, s], s, n=n, m=m,
-                    parallel=parallel, benchmarking=benchmarking)
-              for s in range(max_step)]
+    with span("ann.seed"):
+        beam = _seed(queries, start_ids, vectors[start_ids],
+                     graph[start_ids], parallel=parallel, cap=cap, m=m,
+                     benchmarking=benchmarking)
+    popped = []
+    for s in range(max_step):
+        with span("ann.step"):
+            if traced:
+                trace.count("ann.steps")
+            popped.append(_step(beam, queries, vectors, graph, rand[:, s], s,
+                                n=n, m=m, parallel=parallel,
+                                benchmarking=benchmarking))
     return beam, torch.stack(popped, dim=1)
 
 
@@ -217,24 +234,38 @@ class PlaintextEngine:
                                          device=self.device)
 
     def search(self, queries, k, max_step, parallel, seed=0,
-               benchmarking=False, step_randoms=None):
+               benchmarking=False, step_randoms=None, traced=True):
         """-> (ids, reach_steps), (Q, k) int32 numpy arrays, -1 padded.
 
         step_randoms: (Q, max_step, parallel, m) random ids in [0, n), the
         JAX package's split(split(PRNGKey(seed), Q)[i], max_step)[s] draws;
-        None draws them from a torch.Generator seeded with `seed`."""
-        n, m = self.graph.shape
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-        if step_randoms is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(seed)
-            rand = torch.randint(0, n, (q.shape[0], max_step, parallel, m),
-                                 generator=gen, dtype=torch.int32,
-                                 device=self.device)
-        else:
-            rand = _as_randoms(step_randoms, self.device)
-        (ids, dist, _, _), _ = _beam_search(
-            self.vectors, self.graph, self.start_ids, q, rand, n=n, m=m,
-            max_step=max_step, parallel=parallel, benchmarking=benchmarking)
-        out, steps = finish_topk(ids, dist, topk=k, parallel=parallel, m=m)
-        return out.cpu().numpy(), steps.to(torch.int32).cpu().numpy()
+        None draws them from a torch.Generator seeded with `seed`.
+
+        traced: the search is a request "ann" of the port's tracing
+        (utils/trace.py; counter "ann.queries"): "ann.seed", an "ann.step"
+        a step (counter "ann.steps") and "ann.finish", the top-k and the
+        copies to the host. The graph build's quality gate passes False, so
+        that a traced build records its own spans alone."""
+        span = trace.span if traced else _untraced
+        with span("ann"):
+            n, m = self.graph.shape
+            q = torch.as_tensor(queries, dtype=torch.float32,
+                                device=self.device)
+            if traced:
+                trace.count("ann.queries", q.shape[0])
+            if step_randoms is None:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(seed)
+                rand = torch.randint(0, n, (q.shape[0], max_step, parallel,
+                                            m), generator=gen,
+                                     dtype=torch.int32, device=self.device)
+            else:
+                rand = _as_randoms(step_randoms, self.device)
+            (ids, dist, _, _), _ = _beam_search(
+                self.vectors, self.graph, self.start_ids, q, rand, n=n, m=m,
+                max_step=max_step, parallel=parallel,
+                benchmarking=benchmarking, traced=traced)
+            with span("ann.finish"):
+                out, steps = finish_topk(ids, dist, topk=k,
+                                         parallel=parallel, m=m)
+                return out.cpu().numpy(), steps.to(torch.int32).cpu().numpy()

@@ -975,7 +975,7 @@ def _build_graph(vectors, m: int, *, rounds: int = 6, seed: int = 0,
 
         def gate_search(vecs, g, start_ids, queries, seed):
             return PlaintextEngine(vecs, g, start_ids=start_ids).search(
-                queries, 20, 20, 2, seed=seed)
+                queries, 20, 20, 2, seed=seed, traced=False)
 
         # the padded f32 copy is already on the device: no second upload
         with phase("gate"):

@@ -16,7 +16,7 @@ import torch
 from pacmann_tpu_torch.graph.beam import PlaintextEngine
 from pacmann_tpu_torch.graph.beam_host import BasicGraphOracle, BeamSearcher
 from pacmann_tpu_torch.ops.distance import l2_distance
-from pacmann_tpu_torch.utils import cuda_lib
+from pacmann_tpu_torch.utils import cuda_lib, trace
 from pacmann_tpu_torch.utils.u32 import smallest_k_keyed
 
 
@@ -47,23 +47,36 @@ def knn_search(vectors: torch.Tensor, queries: torch.Tensor, k: int, *,
     id: the order of lax.top_k over each whole row. vectors (n, D) and
     queries (Q, D) are f32 tensors on one device; distances go through
     l2_distance (use_pallas as there) a (Q_BLOCK, p_block) tile at a time,
-    and each tile's k best merge into the running k best."""
+    and each tile's k best merge into the running k best.
+
+    A request "knn" of the port's tracing (utils/trace.py; counter
+    "knn.queries"): a span "knn.distance" a tile's distances (counter
+    "knn.tiles": one l2_distance call, one K6 launch on the card) and a
+    span "knn.select" its top-k and merge. Nothing here waits for the
+    device, so the spans close once their work is launched."""
     k = min(k, vectors.shape[0])
     out_d, out_i = [], []
-    for q0 in range(0, queries.shape[0], Q_BLOCK):
-        q = queries[q0:q0 + Q_BLOCK]
-        best = None
-        for b0 in range(0, vectors.shape[0], p_block):
-            d = l2_distance(q, vectors[b0:b0 + p_block], use_pallas=use_pallas)
-            ids = torch.arange(b0, b0 + d.shape[1], device=d.device)
-            d, ids = smallest_k_keyed(d, ids, min(k, d.shape[1]))
-            if best is not None:
-                d, ids = smallest_k_keyed(torch.cat([best[0], d], dim=1),
-                                          torch.cat([best[1], ids], dim=1), k)
-            best = (d, ids)
-        out_d.append(best[0])
-        out_i.append(best[1])
-    return torch.cat(out_d), torch.cat(out_i)
+    with trace.span("knn"):
+        trace.count("knn.queries", queries.shape[0])
+        for q0 in range(0, queries.shape[0], Q_BLOCK):
+            q = queries[q0:q0 + Q_BLOCK]
+            best = None
+            for b0 in range(0, vectors.shape[0], p_block):
+                with trace.span("knn.distance"):
+                    d = l2_distance(q, vectors[b0:b0 + p_block],
+                                    use_pallas=use_pallas)
+                    trace.count("knn.tiles")
+                with trace.span("knn.select"):
+                    ids = torch.arange(b0, b0 + d.shape[1], device=d.device)
+                    d, ids = smallest_k_keyed(d, ids, min(k, d.shape[1]))
+                    if best is not None:
+                        d, ids = smallest_k_keyed(
+                            torch.cat([best[0], d], dim=1),
+                            torch.cat([best[1], ids], dim=1), k)
+                best = (d, ids)
+            out_d.append(best[0])
+            out_i.append(best[1])
+        return torch.cat(out_d), torch.cat(out_i)
 
 
 def brute_force_knn(vectors, queries, k: int, block: int = 65536,

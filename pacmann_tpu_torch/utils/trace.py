@@ -15,8 +15,8 @@ record_function and allocates nothing.
 
 Inside `enabled()` each span records its name, its start and end
 (time.perf_counter_ns), its id, its parent's id and the id of the request
-it belongs to: the outermost open "search", "prep", "query" or "build"
-span (None outside one); and the counters count. The records and the
+it belongs to: the outermost open "search", "prep", "query", "build",
+"knn" or "ann" span (None outside one); and the counters count. The records and the
 counters are kept in memory until the next `enabled()` and read out with
 `read()`. While a profiler is active a span opens
 record_function("pacmann.<name>"), so that it sits in the profiler's trace
@@ -41,7 +41,7 @@ from torch.autograd import profiler as _profiler
 from torch.autograd.profiler import record_function
 
 PREFIX = "pacmann."
-REQUESTS = ("search", "prep", "query", "build")
+REQUESTS = ("search", "prep", "query", "build", "knn", "ann")
 
 
 class Span(NamedTuple):

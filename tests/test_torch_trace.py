@@ -623,3 +623,86 @@ def test_a_traced_search_answers_as_an_untraced_one(builds):
     assert np.array_equal(f0, f1) and s0.keys() == s1.keys()
     for key in s0:
         assert np.array_equal(s0[key], s1[key]), key
+
+
+# -- the exact scan and the plaintext search (graph/recall.py, graph/beam.py)
+
+def _u8_data(n, q, d=16, seed=12):
+    rng = np.random.default_rng(seed)
+    vectors = rng.integers(0, 256, size=(n, d)).astype(np.float32)
+    queries = rng.integers(0, 256, size=(q, d)).astype(np.float32)
+    return torch.from_numpy(vectors), torch.from_numpy(queries)
+
+
+def _tree(rec, request):
+    """The recording's one request span `request` and the other spans,
+    each checked to sit inside it as a child of it."""
+    roots = [s for s in rec.spans if s.name == request]
+    assert len(roots) == 1
+    r = roots[0]
+    assert r.parent is None and r.request == r.id
+    rest = [s for s in rec.spans if s is not r]
+    for s in rest:
+        assert s.parent == r.id and s.request == r.id
+        assert r.start_ns <= s.start_ns <= s.end_ns <= r.end_ns
+    return rest
+
+
+def test_a_traced_knn_search_is_one_request_tree():
+    """knn_search inside enabled(): the untraced answers; one "knn"
+    request holding a "knn.distance" and a "knn.select" span a tile, in
+    turn; counters knn.queries and knn.tiles (2 query blocks x 5 point
+    blocks)."""
+    from pacmann_tpu_torch.graph.recall import Q_BLOCK, knn_search
+
+    v, q = _u8_data(4500, Q_BLOCK + 76)
+    want = knn_search(v, q, 7, p_block=1024)
+    with trace.enabled():
+        got = knn_search(v, q, 7, p_block=1024)
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    rec = trace.read()
+    tiles = 2 * 5
+    rest = _tree(rec, "knn")
+    assert [s.name for s in sorted(rest, key=lambda s: s.start_ns)] == \
+        ["knn.distance", "knn.select"] * tiles
+    assert rec.counters == {"knn.queries": Q_BLOCK + 76, "knn.tiles": tiles}
+
+
+@pytest.mark.parametrize("benchmarking", (False, True))
+def test_a_traced_plaintext_search_is_one_request_tree(benchmarking):
+    """PlaintextEngine.search inside enabled(): the untraced answers; one
+    "ann" request holding "ann.seed", an "ann.step" a step and
+    "ann.finish", in turn; counters ann.queries and ann.steps."""
+    from pacmann_tpu_torch.graph.beam import PlaintextEngine
+
+    v, q = _u8_data(2048, 9)
+    graph = np.random.default_rng(4).integers(0, 2048, size=(2048, 8))
+    eng = PlaintextEngine(v, graph, device="cpu")
+    kw = dict(k=5, max_step=6, parallel=2, seed=3,
+              benchmarking=benchmarking)
+    want = eng.search(q, **kw)
+    with trace.enabled():
+        got = eng.search(q, **kw)
+    assert all(np.array_equal(a, b) for a, b in zip(want, got))
+    rec = trace.read()
+    rest = _tree(rec, "ann")
+    assert [s.name for s in sorted(rest, key=lambda s: s.start_ns)] == \
+        ["ann.seed"] + ["ann.step"] * 6 + ["ann.finish"]
+    assert rec.counters == {"ann.queries": 9, "ann.steps": 6}
+
+
+def test_the_corridor_search_and_an_untraced_search_record_nothing():
+    """search_paths_all (the build's corridor stage) and a search with
+    traced=False (the build's quality gate) open no span and count
+    nothing, so a traced build records its own spans alone."""
+    from pacmann_tpu_torch.graph.beam import PlaintextEngine, search_paths_all
+
+    v, q = _u8_data(512, 3)
+    graph = torch.from_numpy(
+        np.random.default_rng(5).integers(0, 512, size=(512, 8))).int()
+    with trace.enabled():
+        search_paths_all(v, graph, torch.arange(16), n=512, m=8, max_step=4,
+                         parallel=2, block=128, seed=2)
+        PlaintextEngine(v, graph, device="cpu").search(q, 5, 4, 2,
+                                                       traced=False)
+    assert trace.read() == ([], {})
